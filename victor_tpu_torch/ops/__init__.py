@@ -1,0 +1,16 @@
+from .splines import (Spline1D, PchipTable, Bicubic2D, ppoly_eval, pchip_eval,
+                      cubic_deriv_operator, hermite_coeffs, spline_eval_matrix,
+                      gradient_matrix, pchip_coeffs)
+from .integrate import trapz_weights, simpson_weights
+from .legendre import legendre_p
+from .operators import (multipole_projection_matrix, enclosed_density_operator,
+                        resampled_gradient_operator)
+
+__all__ = [
+    'Spline1D', 'PchipTable', 'Bicubic2D', 'ppoly_eval', 'pchip_eval',
+    'cubic_deriv_operator', 'hermite_coeffs', 'spline_eval_matrix',
+    'gradient_matrix', 'pchip_coeffs',
+    'trapz_weights', 'simpson_weights', 'legendre_p',
+    'multipole_projection_matrix', 'enclosed_density_operator',
+    'resampled_gradient_operator',
+]

@@ -1,0 +1,256 @@
+"""Fixed-knot spline primitives: host builders (numpy) and device evaluation.
+
+The port of `victor_tpu/ops/splines.py:47-372`. As there, each spline is split
+into a host-side step, done once at table-build time, that probes scipy with
+unit basis vectors to extract a linear operator, and a device-side step that
+finds the interval and evaluates the local cubic. The host half is a copy of
+the JAX package's numpy code; the device half works on tensors with a leading
+batch axis.
+
+Piecewise-cubic evaluation (`ppoly_eval`) runs the hand-written CUDA kernel
+for CUDA tensors and its plain PyTorch version for CPU tensors
+(`kernels/ppoly.py`). Nothing moves a CUDA tensor to the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..kernels.ppoly import ppoly_eval_cuda, ppoly_eval_plain
+
+
+# ---------------------------------------------------------------------------
+# Host-side preparation (numpy / scipy)
+# ---------------------------------------------------------------------------
+
+def cubic_deriv_operator(x: np.ndarray) -> np.ndarray:
+    """Linear operator D (n, n) mapping values y to not-a-knot nodal
+    derivatives, so that the interpolating cubic spline is recovered in
+    Hermite form per interval. Matches
+    scipy.interpolate.InterpolatedUnivariateSpline(x, y, k=3) exactly."""
+    from scipy.interpolate import CubicSpline
+    x = np.asarray(x, dtype=np.float64)
+    n = len(x)
+    D = np.zeros((n, n))
+    for j in range(n):
+        e = np.zeros(n)
+        e[j] = 1.0
+        D[:, j] = CubicSpline(x, e, bc_type='not-a-knot')(x, 1)
+    return D
+
+
+def hermite_coeffs(x, y, d):
+    """Per-interval ascending-power cubic coefficients from values and
+    derivatives. Works on numpy arrays or torch tensors; y/d may have leading
+    batch axes over the trailing knot axis. Returns (..., n-1, 4)."""
+    stack = torch.stack if isinstance(y, torch.Tensor) else np.stack
+    h = x[1:] - x[:-1]
+    dy = (y[..., 1:] - y[..., :-1]) / h
+    c0 = y[..., :-1]
+    c1 = d[..., :-1]
+    c2 = (3.0 * dy - 2.0 * d[..., :-1] - d[..., 1:]) / h
+    c3 = (d[..., :-1] + d[..., 1:] - 2.0 * dy) / (h * h)
+    return stack([c0, c1, c2, c3], -1)
+
+
+def spline_eval_matrix(x: np.ndarray, q: np.ndarray, ext: int = 0) -> np.ndarray:
+    """Dense matrix E (len(q), len(x)) with E @ y == IUS(x, y, k=3, ext=ext)(q)."""
+    from scipy.interpolate import InterpolatedUnivariateSpline
+    x = np.asarray(x, dtype=np.float64)
+    q = np.asarray(q, dtype=np.float64)
+    n = len(x)
+    E = np.zeros((len(q), n))
+    for j in range(n):
+        e = np.zeros(n)
+        e[j] = 1.0
+        E[:, j] = InterpolatedUnivariateSpline(x, e, k=3, ext=ext)(q)
+    return E
+
+
+def gradient_matrix(x: np.ndarray) -> np.ndarray:
+    """Dense matrix G with G @ y == np.gradient(y, x) (numpy's default
+    edge_order=1, reproduced by probing rather than re-derived)."""
+    x = np.asarray(x, dtype=np.float64)
+    n = len(x)
+    G = np.zeros((n, n))
+    for j in range(n):
+        e = np.zeros(n)
+        e[j] = 1.0
+        G[:, j] = np.gradient(e, x)
+    return G
+
+
+def pchip_coeffs(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """PCHIP coefficients of a static table y (n, ...): (n-1, 4, ...) in
+    ascending powers, matching scipy.interpolate.PchipInterpolator(x, y,
+    axis=0) exactly."""
+    from scipy.interpolate import PchipInterpolator
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    p = PchipInterpolator(x, y, axis=0)
+    c = np.moveaxis(p.c[::-1], [0, 1], [1, 0])
+    return np.ascontiguousarray(c)
+
+
+def _tensor(a, device, dtype):
+    """A numpy array or tensor as a tensor on `device` of `dtype`."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, dtype)
+    return torch.tensor(np.asarray(a, dtype=np.float64)).to(device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Device-side containers and evaluation
+# ---------------------------------------------------------------------------
+
+def ppoly_eval(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
+               clamp: bool = True) -> torch.Tensor:
+    """Evaluate a piecewise cubic at query points q.
+
+    x:      (n,) sorted knots
+    coeffs: (n-1, 4) shared by all queries, or (B, n-1, 4) with one table per
+            leading row of q
+    q:      any shape; with batched coeffs its leading axis is B
+    clamp:  clamp q into [x[0], x[-1]] (scipy ext=3); otherwise the end
+            polynomials extend (ext=0). NaN queries give NaN either way.
+
+    CUDA tensors go to the CUDA kernel, which raises on what it cannot take;
+    CPU tensors go to the plain version.
+    """
+    rows = coeffs.shape[0] if coeffs.ndim == 3 else 1
+    c = coeffs.reshape(rows, *coeffs.shape[-2:]).contiguous()
+    q2 = q.reshape(rows, -1).contiguous()
+    if q.is_cuda:
+        out = ppoly_eval_cuda(x, c, q2, clamp)
+    else:
+        out = ppoly_eval_plain(x, c, q2, clamp)
+    return out.reshape(q.shape)
+
+
+def pchip_eval(x, coeffs, q):
+    """Evaluate PCHIP coefficients (n-1, 4, ...) at q of shape (B,) or ()
+    with polynomial end-extrapolation (scipy PchipInterpolator semantics).
+    Returns q.shape + the table's trailing shape."""
+    n = x.shape[0]
+    idx = torch.clamp(torch.searchsorted(x, q, right=True) - 1, 0, n - 2)
+    t = q - x[idx]
+    c = coeffs[idx]                               # q.shape + (4, ...)
+    t = t.reshape(t.shape + (1,) * (c.ndim - q.ndim - 1))
+    c0, c1, c2, c3 = c.unbind(q.ndim)
+    return ((c3 * t + c2) * t + c1) * t + c0
+
+
+@dataclasses.dataclass(frozen=True)
+class Spline1D:
+    """A cubic spline with fixed knots whose values may change at run time.
+
+    `deriv_op` maps values to nodal derivatives (`cubic_deriv_operator`);
+    coefficients are recovered in Hermite form. `clamp` reproduces scipy
+    ext=3; clamp=False gives ext=0.
+    """
+    x: torch.Tensor                    # (n,)
+    deriv_op: torch.Tensor             # (n, n)
+    clamp: bool = True
+
+    @classmethod
+    def build(cls, x, clamp: bool = True, device='cpu',
+              dtype=torch.float64) -> 'Spline1D':
+        return cls.build_host(x, clamp).to(device, dtype)
+
+    @classmethod
+    def build_host(cls, x, clamp: bool = True) -> 'Spline1D':
+        """The spline with float64 numpy leaves (`.to` makes tensors)."""
+        x = np.asarray(x, dtype=np.float64)
+        return cls(x=x, deriv_op=cubic_deriv_operator(x), clamp=clamp)
+
+    def to(self, device, dtype) -> 'Spline1D':
+        return Spline1D(_tensor(self.x, device, dtype),
+                        _tensor(self.deriv_op, device, dtype), self.clamp)
+
+    def coeffs(self, y: torch.Tensor) -> torch.Tensor:
+        """(..., n) values -> (..., n-1, 4) local polynomial coefficients."""
+        d = torch.einsum('ij,...j->...i', self.deriv_op, y)
+        return hermite_coeffs(self.x, y, d)
+
+    def eval(self, coeffs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        return ppoly_eval(self.x, coeffs, q, clamp=self.clamp)
+
+    def __call__(self, y: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        return self.eval(self.coeffs(y), q)
+
+
+@dataclasses.dataclass(frozen=True)
+class PchipTable:
+    """A static PCHIP-interpolated table f(beta) -> (...) built on the host."""
+    x: torch.Tensor          # (n,)
+    coeffs: torch.Tensor     # (n-1, 4, ...) ascending powers
+
+    @classmethod
+    def build(cls, x, y, device='cpu', dtype=torch.float64) -> 'PchipTable':
+        return cls(x=_tensor(x, device, dtype),
+                   coeffs=_tensor(pchip_coeffs(x, y), device, dtype))
+
+    def __call__(self, q: torch.Tensor) -> torch.Tensor:
+        return pchip_eval(self.x, self.coeffs, q)
+
+
+@dataclasses.dataclass(frozen=True)
+class Bicubic2D:
+    """Static bicubic surface with FITPACK `.ev` semantics (clamped
+    arguments), stored in exact SVD tensor-product form: the surface is
+    sum_m S_x[u_m](q) * S_y[v_m](p) with S_x/S_y 1D not-a-knot cubics. A
+    y-independent surface (`y_const`, e.g. the BOSS isotropic dispersion
+    template) folds its constant y-factors into `cu`."""
+    x: torch.Tensor          # (nx,)
+    y: torch.Tensor          # (ny,)
+    cu: torch.Tensor         # (R, nx-1, 4)
+    cv: torch.Tensor         # (R, ny-1, 4)
+    y_const: bool = False
+
+    @classmethod
+    def build(cls, x, y, z, device='cpu', dtype=torch.float64) -> 'Bicubic2D':
+        return cls.build_host(x, y, z).to(device, dtype)
+
+    @classmethod
+    def build_host(cls, x, y, z) -> 'Bicubic2D':
+        """The surface with float64 numpy leaves (`.to` makes tensors)."""
+        x = np.asarray(x, dtype=np.float64)
+        y = np.asarray(y, dtype=np.float64)
+        z = np.asarray(z, dtype=np.float64)
+        U, s, Vt = np.linalg.svd(z, full_matrices=False)
+        rank = max(1, int(np.sum(s > s[0] * 1e-13))) if s[0] > 0 else 1
+        Dx = cubic_deriv_operator(x)
+        Dy = cubic_deriv_operator(y)
+        cu = np.stack([hermite_coeffs(x, U[:, m] * s[m], Dx @ (U[:, m] * s[m]))
+                       for m in range(rank)])
+        cv = np.stack([hermite_coeffs(y, Vt[m], Dy @ Vt[m])
+                       for m in range(rank)])
+        scale = np.max(np.abs(Vt[:rank])) or 1.0
+        y_const = bool(np.all(np.ptp(Vt[:rank], axis=1) < 1e-13 * scale))
+        if y_const:
+            cu = cu * Vt[:rank, 0][:, None, None]
+        return cls(x=x, y=y, cu=cu, cv=cv, y_const=y_const)
+
+    def to(self, device, dtype) -> 'Bicubic2D':
+        return Bicubic2D(*(_tensor(t, device, dtype)
+                           for t in (self.x, self.y, self.cu, self.cv)),
+                         y_const=self.y_const)
+
+    def ev(self, q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        qc = torch.clamp(q, self.x[0], self.x[-1])
+        rank = self.cu.shape[0]
+        if self.y_const:
+            out = ppoly_eval(self.x, self.cu[0], qc, clamp=False)
+            for m in range(1, rank):
+                out = out + ppoly_eval(self.x, self.cu[m], qc, clamp=False)
+            return out
+        pc = torch.clamp(p, self.y[0], self.y[-1])
+        out = None
+        for m in range(rank):
+            term = ppoly_eval(self.x, self.cu[m], qc, clamp=False) * \
+                ppoly_eval(self.y, self.cv[m], pc, clamp=False)
+            out = term if out is None else out + term
+        return out
