@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
     python3 chip_smoke.py [--profile PATH]
 
@@ -8,19 +8,32 @@ result line is printed):
 
 1. print torch/CUDA versions and the card's name and power limit; require a
    CUDA device; pin TF32 off;
-2. build the CUDA kernel from victor_tpu_torch/kernels/csrc with nvcc;
-3. hold the kernel against its plain PyTorch version at the main path's
-   shapes, in f64 and f32, with clamp on and off, on queries that mix
-   out-of-range, on-knot, NaN and infinite values; time both with CUDA events;
-4. run the batched BOSS DR12 CMASS likelihood (configs/boss_config.yaml,
-   exact perf modes, f64, chunk 64) at the notebook golden point and the 50
-   reference grid points of tests/fixtures/reference_boss.npz, and check
-   that the kernel carried it;
-5. time 4096 parameter points (for information).
+2. build both CUDA kernels from victor_tpu_torch/kernels/csrc with nvcc, one
+   nvcc process per source, started together;
+3. hold the ppoly_eval kernel against its plain PyTorch version at the main
+   path's shapes, in f64 and f32, with clamp on and off, on queries that mix
+   out-of-range, on-knot, NaN and infinite values; time both with CUDA
+   events;
+4. hold the dispersion_final kernel against its plain version on the final
+   stage's inputs from the port's own dispersion model (64 parameter points,
+   50 x 3000 points each) with NaN, out-of-range and near-knot entries
+   planted, in f64 and f32; time both;
+5. run the batched BOSS DR12 CMASS likelihood (configs/boss_config.yaml,
+   streaming model, exact perf modes, f64, chunk 64) at the notebook golden
+   point and the 50 reference grid points of tests/fixtures/
+   reference_boss.npz, and check that the ppoly_eval kernel carried it;
+6. the same for the dispersion model (exact interior, exact covariance)
+   with dispersion_final 'exact' and 'fused': the reference cell-22 point,
+   'fused' against 'exact' on the grid, and the dispersion_final kernel's
+   launches on the 'fused' path;
+7. the default gradient-free modes (make_batched_loglike with no opts_kw)
+   of both models, held to victor_tpu's own bounds against the exact modes,
+   and the factored covariance against the dense one;
+8. time 4096 parameter points in six configurations (for information).
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}. `--profile PATH` also writes a
-torch.profiler summary of one timed batch to PATH.
+torch.profiler summary of one batch of each timed configuration to PATH.
 """
 
 import argparse
@@ -46,11 +59,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 NAMES = ['fsigma8', 'beta', 'sigma_v', 'epsilon']
 EXACT = {'streaming_eval': 'exact', 'beta_covariance': 'exact'}
+DISP_EXACT = {'rsd_model': 'dispersion', 'dispersion_interior': 'exact',
+              'beta_covariance': 'exact'}
 GOLDEN = [0.47, 0.37, 380.0, 1.0]
+DISPLACED = [0.55, 0.45, 320.0, 1.05]   # tests/test_golden.py's second point
 GOLDEN_CHI2, GOLDEN_LNL = 65.01, 284.76
 CHUNK = 64
 N_POINTS = 150_000            # n_v * n_mu * n_s at BOSS size
 TOL = {'float64': 1e-12, 'float32': 1e-5}
+KERNELS = ('ppoly_eval', 'dispersion_final')
 
 
 def check(ok, what):
@@ -78,6 +95,17 @@ def boss_config():
     return cfg
 
 
+def draw_theta(n, seed, device):
+    """n parameter points drawn as bench.py draws them, (n, 4) f64."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(np.column_stack([
+        rng.uniform(0.3, 0.6, n), rng.uniform(0.25, 0.55, n),
+        rng.uniform(250.0, 450.0, n), rng.uniform(0.9, 1.1, n)]),
+        device=device)
+
+
 def card_line():
     out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
@@ -99,6 +127,15 @@ def cuda_ms(fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_in_turns(label, kernel, plain):
+    """CUDA-event milliseconds per call of a kernel and its plain version,
+    timed in turns (kernel, plain, plain, kernel) so drift hits both alike."""
+    k1, p1, p2, k2 = cuda_ms(kernel), cuda_ms(plain), cuda_ms(plain), cuda_ms(kernel)
+    ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f'  {label}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms', flush=True)
+    return ms_k, ms_p
 
 
 def compare_case(n, batch_coeffs, dtype, clamp, gen):
@@ -145,25 +182,248 @@ def compare_case(n, batch_coeffs, dtype, clamp, gen):
     tol = TOL[str(dtype)[6:]] * scale
     check(err <= tol, f'{label}: max|kernel - plain| = {err:.3e} <= {tol:.3e}')
 
-    def kernel():
-        ppoly_eval_cuda(x, coeffs, q, clamp)
-
-    def plain():
-        ppoly_eval_plain(x, coeffs, q, clamp)
-
-    # in turns (kernel, plain, plain, kernel) so drift hits both alike
-    k1, p1, p2, k2 = cuda_ms(kernel), cuda_ms(plain), cuda_ms(plain), cuda_ms(kernel)
-    ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f'  {label}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms', flush=True)
+    ms_k, ms_p = time_in_turns(label, lambda: ppoly_eval_cuda(x, coeffs, q, clamp),
+                               lambda: ppoly_eval_plain(x, coeffs, q, clamp))
     return err, ms_k, ms_p
+
+
+def build_kernels():
+    """Build every kernel, one nvcc process per source, all started
+    together; print each build's seconds and nvcc's report."""
+    from concurrent.futures import ThreadPoolExecutor
+    from victor_tpu_torch.kernels import _build
+
+    def one(name):
+        t0 = time.perf_counter()
+        lib = _build.build(name)
+        return lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(one, KERNELS))
+    for lib, sec in built:
+        print(f'build: {lib.name} in {sec:.2f} s', flush=True)
+        print(lib.with_suffix('.log').read_text().strip(), flush=True)
+
+
+def dispersion_final_inputs(bundle):
+    """The final stage's inputs as the port's own dispersion model makes
+    them (exact interior, 5 Picard iterations) for 64 parameter points,
+    with NaN, out-of-range and near-knot r_par entries planted."""
+    import torch
+    from victor_tpu_torch.likelihood.batched import theta_to_params
+    from victor_tpu_torch.models import ccf_theory
+
+    captured = []
+    fused = ccf_theory.dispersion_final
+
+    def record(*args):
+        captured.append(args)
+        return fused(*args)
+
+    opts = bundle.theory_opts.replace(rsd_model='dispersion',
+                                      dispersion_interior='exact',
+                                      dispersion_final='fused')
+    params = theta_to_params(draw_theta(CHUNK, 1, 'cuda'), NAMES)
+    ccf_theory.dispersion_final = record
+    try:
+        ccf_theory.theory_xi_grid(bundle.tables, bundle.spec, opts, params)
+    finally:
+        ccf_theory.dispersion_final = fused
+    x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel = (
+        t.clone() for t in captured[0])
+    # plant: NaN, beyond both ends of the spline, and within an ulp of knots
+    # (s_perp = 0 and r_par = knot * resc_vel, so rr / resc_vel ~ knot)
+    s_perp[:8, :4] = 0.0
+    r_par[:8, 0, 0] = float('nan')
+    r_par[:8, 1, 1] = 1e3
+    r_par[:8, 2, 2] = 1e-4
+    A[:8, 3, 3] = float('nan')
+    knots = x[torch.arange(8 * 40, device=x.device) % x.shape[0]]
+    r_par[:8, 10:50, 0] = knots.reshape(8, 40) * resc_vel[:8, None]
+    return x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel
+
+
+def compare_dispersion(inputs, dtype):
+    """The dispersion_final kernel against its plain version at the path's
+    shape; returns (max_abs_err over the four outputs, kernel ms, plain
+    ms)."""
+    import torch
+    from victor_tpu_torch.kernels.dispersion import (dispersion_final_cuda,
+                                                     dispersion_final_plain)
+
+    args = [t.to(dtype).contiguous() for t in inputs]
+    out_k = dispersion_final_cuda(*args)
+    out_p = dispersion_final_plain(*args)
+    torch.cuda.synchronize()
+    label = (f'dispersion_final r_par={tuple(args[3].shape)} '
+             f'coeffs={tuple(args[1].shape)} {str(dtype)[6:]}')
+    worst = 0.0
+    for name, k, p in zip(('r_par', 'rr', 'mu_r', 'jac'), out_k, out_p):
+        check(torch.equal(torch.isnan(k), torch.isnan(p)) and
+              torch.equal(torch.isinf(k), torch.isinf(p)) and
+              bool(torch.isnan(p).any()),
+              f'{label} {name}: NaN and inf positions identical')
+        fin = torch.isfinite(p)
+        err = float((k - p)[fin].abs().max())
+        tol = TOL[str(dtype)[6:]] * float(p[fin].abs().max())
+        check(err <= tol, f'{label} {name}: max|kernel - plain| = {err:.3e} '
+                          f'<= {tol:.3e}')
+        worst = max(worst, err)
+
+    ms_k, ms_p = time_in_turns(label, lambda: dispersion_final_cuda(*args),
+                               lambda: dispersion_final_plain(*args))
+    return worst, ms_k, ms_p
+
+
+def dispersion_paths(bundle, ref, grid):
+    """Phase 6: the dispersion likelihood with the exact and the fused final
+    stage. Returns the dispersion_final kernel's launches on the fused
+    path."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import dispersion, ppoly
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+
+    i = [str(x) for x in ref['golden_names']].index('dispersion')
+    want_chi, want_lnl = ref['golden_chi2'][i], ref['golden_lnl'][i]
+    chunks = 1 + -(-len(grid) // CHUNK)
+    out = {}
+    for final in ('exact', 'fused'):
+        loglike = make_batched_loglike(
+            bundle, NAMES, opts_kw={**DISP_EXACT, 'dispersion_final': final},
+            chunk=CHUNK)
+        ppoly.LAUNCHES = dispersion.LAUNCHES = 0
+        lnl_g, chi_g = loglike([GOLDEN])
+        lnl, chi = loglike(grid)
+        torch.cuda.synchronize()
+        out[final] = (lnl.cpu().numpy(), chi.cpu().numpy(),
+                      dispersion.LAUNCHES, ppoly.LAUNCHES)
+        chi2_0, lnl_0 = float(chi_g[0]), float(lnl_g[0])
+        check(bool(np.isfinite(out[final][:2]).all()),
+              f'dispersion ({final}): finite outputs')
+        check(abs(chi2_0 - want_chi) < 1e-8 and abs(lnl_0 - want_lnl) < 1e-8,
+              f'dispersion ({final}) golden point chi2 {chi2_0:.10f} '
+              f'({want_chi:.10f}), lnL {lnl_0:.10f} ({want_lnl:.10f}) '
+              '(< 1e-8)')
+        print(f'  dispersion ({final}) launches: dispersion_final '
+              f'{out[final][2]}, ppoly_eval {out[final][3]}', flush=True)
+    d_lnl, d_chi = (float(np.abs(out['fused'][k] - out['exact'][k]).max())
+                    for k in (0, 1))
+    check(d_chi < 1e-10 and d_lnl < 1e-10,
+          f"dispersion 'fused' vs 'exact' on the {len(grid)} grid points: max "
+          f'|d chi2| {d_chi:.3e}, max |d lnL| {d_lnl:.3e} (< 1e-10)')
+    check(out['fused'][2] >= chunks,
+          f"dispersion_final kernel launches on the 'fused' path: "
+          f'{out["fused"][2]} (>= 1 per chunk, {chunks} chunks)')
+    check(out['exact'][2] == 0,
+          "the 'exact' final stage launches no dispersion_final kernel")
+    return out['fused'][2]
+
+
+def default_modes(bundle, disp_bundle, grid):
+    """Phase 7: make_batched_loglike with no opts_kw (streaming_eval and
+    dispersion_final 'fast', beta_covariance 'factored') held to victor_tpu's
+    own bounds (tests/test_golden.py) against the exact modes at the golden
+    and displaced points, and the factored covariance against the dense one
+    at every point."""
+    import numpy as np
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+
+    points = np.vstack([[GOLDEN, DISPLACED], grid])
+
+    def run(b, kw):
+        lnl, chi = make_batched_loglike(b, NAMES, opts_kw=kw,
+                                        chunk=CHUNK)(points)
+        out = np.stack([lnl.cpu().numpy(), chi.cpu().numpy()])
+        check(bool(np.isfinite(out).all()),
+              f'{b.theory_opts.rsd_model} {kw or "default"}: finite outputs')
+        return out
+
+    s_def = run(bundle, None)
+    s_fe = run(bundle, {'streaming_eval': 'fast', 'beta_covariance': 'exact'})
+    s_ee = run(bundle, EXACT)
+    d_def = run(disp_bundle, None)
+    d_cf = run(disp_bundle, {'dispersion_final': 'exact'})
+    d_ce = run(disp_bundle, {'dispersion_final': 'exact',
+                             'beta_covariance': 'exact'})
+    d_ee = run(disp_bundle, {'dispersion_interior': 'exact',
+                             'dispersion_final': 'exact',
+                             'beta_covariance': 'exact'})
+
+    def shift(a, b, what, bound):
+        d = np.abs(a - b)
+        at_two, on_grid = float(d[:, :2].max()), float(d[:, 2:].max())
+        check(at_two < bound,
+              f'{what}: max |d chi2|, |d lnL| at the golden and displaced '
+              f'points {at_two:.3e} (< {bound:g}); over the {len(grid)} grid '
+              f'points {on_grid:.3e} (information)')
+
+    def factored(a, b, what):
+        rel = float((np.abs(a - b) / np.abs(b)).max())
+        check(rel <= 1e-10,
+              f'{what}: factored vs dense covariance, max relative error of '
+              f'chi2 and lnL {rel:.3e} over {len(points)} points (<= 1e-10)')
+
+    shift(s_fe, s_ee, 'streaming fast vs exact', 3e-2)
+    shift(d_def, d_cf, "dispersion final 'fast' vs 'exact' (Chebyshev "
+                       'interior)', 5e-3)
+    shift(d_ce, d_ee, 'dispersion Chebyshev vs exact interior (exact final)',
+          1e-3)
+    factored(s_def, s_fe, 'streaming default')
+    factored(d_cf, d_ce, 'dispersion (Chebyshev interior, exact final)')
+
+
+def throughput(configs, card, profile_path):
+    """Phase 8 (information only): evaluations per second of 4096 points
+    drawn as bench.py draws them, chunk 64, one warm-up and three timed
+    reps per configuration."""
+    import torch
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+
+    n = 4096
+    theta = draw_theta(n, 0, 'cuda')
+    tables = []
+    for name, b, kw in configs:
+        loglike = make_batched_loglike(b, NAMES, opts_kw=kw, chunk=CHUNK)
+        loglike(theta)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            loglike(theta)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rate = 3 * n / sum(times)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        print(f'throughput {name}: {rate:.1f} evals/s (f64, {n} points, '
+              f'chunk {CHUNK}, reps {[round(t, 4) for t in times]} s, peak '
+              f'{peak_gb:.2f} GB) on {card}', flush=True)
+        if profile_path:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                loglike(theta)
+                torch.cuda.synchronize()
+            tables.append(f'== {name}: {n} points, chunk {CHUNK}, f64\n'
+                          + prof.key_averages().table(
+                              sort_by='cuda_time_total', row_limit=30))
+    if profile_path:
+        os.makedirs(os.path.dirname(os.path.abspath(profile_path)),
+                    exist_ok=True)
+        with open(profile_path, 'w') as f:
+            f.write(card + '\n' + '\n\n'.join(tables) + '\n')
+        print(f'profile tables written to {profile_path}', flush=True)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', metavar='PATH',
-                        help='write a torch.profiler summary of one timed '
-                             'batch to PATH')
+                        help='write a torch.profiler summary of one batch of '
+                             'each timed configuration to PATH')
     args = parser.parse_args()
+
+    import dataclasses
 
     import numpy as np
     import torch
@@ -182,17 +442,13 @@ def main() -> int:
 
     sys.path.insert(0, REPO)
     from victor_tpu_torch.io.tables import build_tables
-    from victor_tpu_torch.kernels import _build, ppoly
+    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.likelihood.batched import make_batched_loglike
 
-    # ---- 2. build the kernel ----
-    t0 = time.perf_counter()
-    lib = _build.build('ppoly_eval')
-    build_s = time.perf_counter() - t0
-    print(f'build: {lib.name} in {build_s:.2f} s', flush=True)
-    print(lib.with_suffix('.log').read_text().strip(), flush=True)
+    # ---- 2. build the kernels ----
+    build_kernels()
 
-    # ---- 3. kernel vs plain at the main path's shapes ----
+    # ---- 3. ppoly_eval kernel vs plain at the main path's shapes ----
     print('compare ppoly_eval kernel vs plain:', flush=True)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
@@ -205,12 +461,19 @@ def main() -> int:
             results[(str(dtype)[6:], n, batched, clamp)] = compare_case(
                 n, batched, dtype, clamp, gen)
 
-    # ---- 4. the main path, f64 ----
+    # ---- 4. dispersion_final kernel vs plain at the path's shape ----
     cfg = boss_config()
     t0 = time.perf_counter()
     bundle = build_tables(cfg['model'], cfg['data'], device='cuda',
                           dtype=torch.float64)
     print(f'build_tables: {time.perf_counter() - t0:.2f} s', flush=True)
+    print('compare dispersion_final kernel vs plain:', flush=True)
+    inputs = dispersion_final_inputs(bundle)
+    disp_results = {str(dtype)[6:]: compare_dispersion(inputs, dtype)
+                    for dtype in (torch.float64, torch.float32)}
+    del inputs
+
+    # ---- 5. the streaming main path, f64 ----
     loglike = make_batched_loglike(bundle, NAMES, opts_kw=EXACT, chunk=CHUNK)
     ref = np.load(os.path.join(REPO, 'tests', 'fixtures', 'reference_boss.npz'))
     grid = ref['grid_params']
@@ -238,41 +501,27 @@ def main() -> int:
           f'ppoly_eval kernel launches on the main path: {launches} '
           f'(>= 3 per chunk, {chunks} chunks)')
 
-    # ---- 5. throughput (information only) ----
-    rng = np.random.default_rng(0)
-    n = 4096
-    theta = torch.as_tensor(np.column_stack([
-        rng.uniform(0.3, 0.6, n), rng.uniform(0.25, 0.55, n),
-        rng.uniform(250.0, 450.0, n), rng.uniform(0.9, 1.1, n)]),
-        device='cuda')
-    loglike(theta)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        loglike(theta)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    rate = 3 * n / sum(times)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f'throughput: {rate:.1f} evals/s (f64, {n} points, chunk {CHUNK}, '
-          f'reps {[round(t, 4) for t in times]} s, peak {peak_gb:.2f} GB) '
-          f'on {card}', flush=True)
+    # ---- 6. the dispersion model, exact and fused final stage, f64 ----
+    print('dispersion model:', flush=True)
+    disp_launches = dispersion_paths(bundle, ref, grid)
 
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            loglike(theta)
-            torch.cuda.synchronize()
-        table = prof.key_averages().table(sort_by='cuda_time_total',
-                                          row_limit=40)
-        os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
-                    exist_ok=True)
-        with open(args.profile, 'w') as f:
-            f.write(f'{card}\n{n} points, chunk {CHUNK}, f64\n{table}\n')
-        print(table, flush=True)
+    # ---- 7. the default gradient-free modes ----
+    print('default modes:', flush=True)
+    disp_bundle = dataclasses.replace(
+        bundle, theory_opts=bundle.theory_opts.replace(rsd_model='dispersion'))
+    default_modes(bundle, disp_bundle, grid)
+
+    # ---- 8. throughput (information only) ----
+    throughput([('streaming exact', bundle, EXACT),
+                ('streaming default', bundle, None),
+                ('dispersion default', disp_bundle, None),
+                ("dispersion final 'fused', other modes default", disp_bundle,
+                 {'dispersion_final': 'fused'}),
+                ("dispersion final 'exact', other modes default", disp_bundle,
+                 {'dispersion_final': 'exact'}),
+                ('dispersion exact', bundle, {**DISP_EXACT,
+                                              'dispersion_final': 'exact'})],
+               card, args.profile)
 
     key = ('float64', 31, True, True)
     print(f'card: {card}', flush=True)
@@ -281,7 +530,14 @@ def main() -> int:
         'source': 'victor_tpu_torch/kernels/csrc/ppoly_eval.cu',
         'replaces': 'victor_tpu/ops/splines.py:537',
         'launches': launches, 'max_abs_err': results[key][0],
-        'ms': results[key][1], 'plain_ms': results[key][2]}]}), flush=True)
+        'ms': results[key][1], 'plain_ms': results[key][2]}, {
+        'name': 'dispersion_final', 'route': 'cuda',
+        'source': 'victor_tpu_torch/kernels/csrc/dispersion_final.cu',
+        'replaces': 'victor_tpu/ops/dispersion_pallas.py:32',
+        'launches': disp_launches,
+        'max_abs_err': disp_results['float64'][0],
+        'ms': disp_results['float64'][1],
+        'plain_ms': disp_results['float64'][2]}]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,5 @@
-"""The ppoly_eval CUDA kernel's wrapper, its build and its plain version.
+"""The CUDA kernels' wrappers, their build and their plain versions:
+ppoly_eval and the dispersion model's final stage.
 
 This module imports neither jax nor victor_tpu, so it also runs on a GPU
 machine without them:
@@ -13,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from victor_tpu_torch.kernels import _build, ppoly
+from victor_tpu_torch.kernels import _build, dispersion, ppoly
 from victor_tpu_torch.ops import splines as tsp
 
 torch.set_num_threads(1)
@@ -51,6 +52,29 @@ def _t(a):
     return torch.as_tensor(a, dtype=torch.float64)
 
 
+def _dispersion_inputs(rng, B, n_v, q, rows=None):
+    """Final-stage inputs (x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel)
+    as numpy arrays: a 31-knot spline with `rows` coefficient tables (B by
+    default), distinct iaH and resc_vel per row, and NaN, out-of-range and
+    near-knot entries planted (near-knot: s_perp = 0 and r_par = knot *
+    resc_vel, within an ulp of the knot after the division)."""
+    x = _knots(rng, 31)
+    rows = B if rows is None else rows
+    c_vr = _coeffs(x, rng.standard_normal((rows, 31)))
+    c_dvr = _coeffs(x, rng.standard_normal((rows, 31)))
+    s_perp = rng.uniform(0.0, 120.0, (B, q))
+    r_par = rng.uniform(-130.0, 130.0, (B, n_v, q))
+    A = r_par * rng.uniform(0.9, 1.1, (B, n_v, q))
+    iaH = rng.uniform(0.009, 0.013, B)
+    resc_vel = rng.uniform(0.95, 1.05, B)
+    resc_vel[0] = 1.0
+    s_perp[:, 0] = 0.0
+    r_par[:, :, 0] = x[rng.integers(0, 31, (B, n_v))] * resc_vel[:, None]
+    r_par[:, 0, 1:6] = [np.nan, 1e3, -1e3, 1e-4, 500.0]
+    A[:, 1, 7] = np.nan
+    return x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel
+
+
 def test_cpu_tensors_take_the_plain_version():
     rng = np.random.default_rng(9)
     x = _knots(rng, 31)
@@ -70,11 +94,70 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                               torch.zeros(2, 3, dtype=torch.float64))
 
 
-def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+@pytest.mark.parametrize('name', ['ppoly_eval', 'dispersion_final'])
+def test_build_without_nvcc_raises(monkeypatch, tmp_path, name):
     monkeypatch.setattr(_build.shutil, 'which', lambda name: None)
     monkeypatch.setattr(_build, 'DEFAULT_NVCC', str(tmp_path / 'no-nvcc'))
     with pytest.raises(RuntimeError, match='nvcc not found'):
-        _build.build('ppoly_eval', build_dir=tmp_path)
+        _build.build(name, build_dir=tmp_path)
+
+
+@pytest.mark.parametrize('shared', [False, True])
+def test_dispersion_cpu_tensors_take_the_plain_version(shared):
+    rng = np.random.default_rng(16)
+    args = [_t(a) for a in _dispersion_inputs(rng, 3, 4, 20,
+                                              rows=1 if shared else None)]
+    before = dispersion.LAUNCHES
+    got = tsp.dispersion_final(*args)
+    want = dispersion.dispersion_final_plain(*args)
+    assert dispersion.LAUNCHES == before
+    for g, w in zip(got, want):
+        assert g.shape == (3, 4, 20)
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    assert torch.isnan(got[3]).any() and torch.isfinite(got[3]).any()
+
+
+def _bad(args, i, value):
+    out = list(args)
+    out[i] = value
+    return out
+
+
+@pytest.mark.parametrize('case,error', [
+    ('f32_r_par', TypeError), ('int_x', TypeError),
+    ('s_perp_shape', ValueError), ('A_shape', ValueError),
+    ('coeff_rows', ValueError), ('coeff_width', ValueError),
+    ('mixed_sharing', ValueError), ('iaH_shape', ValueError),
+    ('too_many_knots', ValueError),
+])
+def test_dispersion_dispatcher_rejects_bad_inputs(case, error):
+    rng = np.random.default_rng(17)
+    args = [_t(a) for a in _dispersion_inputs(rng, 3, 4, 20)]
+    x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel = args
+    n = dispersion.MAX_KNOTS + 1
+    bad = {
+        'f32_r_par': _bad(args, 3, r_par.float()),
+        'int_x': _bad(args, 0, x.long()),
+        's_perp_shape': _bad(args, 5, s_perp[:, :-1]),
+        'A_shape': _bad(args, 4, A[:, :-1]),
+        'coeff_rows': _bad(args, 1, c_vr[:2]),
+        'coeff_width': _bad(args, 2, c_dvr[..., :3]),
+        'mixed_sharing': _bad(args, 2, c_dvr[:1]),
+        'iaH_shape': _bad(args, 6, iaH[:, None]),
+        'too_many_knots': [torch.arange(n, dtype=torch.float64),
+                           torch.zeros(3, n - 1, 4, dtype=torch.float64),
+                           torch.zeros(3, n - 1, 4, dtype=torch.float64),
+                           *args[3:]],
+    }[case]
+    with pytest.raises(error):
+        tsp.dispersion_final(*bad)
+
+
+def test_dispersion_kernel_wrapper_refuses_cpu_tensors():
+    rng = np.random.default_rng(18)
+    args = [_t(a) for a in _dispersion_inputs(rng, 2, 3, 10)]
+    with pytest.raises(ValueError, match='CUDA'):
+        dispersion.dispersion_final_cuda(*args)
 
 
 @pytest.fixture
@@ -165,3 +248,45 @@ def test_kernel_offsets_past_two_to_the_31(cuda_device):
     assert float((out[:8] - head).abs().max()) <= 1e-5 * scale
     del q, out
     torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize('shared', [False, True])
+def test_dispersion_kernel_matches_plain_on_card(cuda_device, dtype, tol,
+                                                 shared):
+    rng = np.random.default_rng(19)
+    args = [torch.as_tensor(a, device=cuda_device).to(dtype) for a in
+            _dispersion_inputs(rng, 6, 10, 3000, rows=1 if shared else None)]
+    before = dispersion.LAUNCHES
+    got = dispersion.dispersion_final_cuda(*args)
+    assert dispersion.LAUNCHES == before + 1
+    want = dispersion.dispersion_final_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert torch.equal(torch.isinf(g), torch.isinf(w))
+        fin = torch.isfinite(w)
+        scale = float(w[fin].abs().max())
+        assert float((g - w)[fin].abs().max()) <= tol * scale
+    with pytest.raises(RuntimeError, match='no backward'):
+        dispersion.dispersion_final_cuda(args[0], args[1].requires_grad_(),
+                                         *args[2:])
+
+
+@pytest.mark.cuda
+def test_dispersion_cuda_tensors_launch_the_kernel_through_ops(cuda_device):
+    """ops.splines.dispersion_final on CUDA tensors launches the kernel once
+    and agrees with the same call on the CPU."""
+    rng = np.random.default_rng(20)
+    cpu = [_t(a) for a in _dispersion_inputs(rng, 3, 50, 300)]
+    before = dispersion.LAUNCHES
+    got = tsp.dispersion_final(*(a.to(cuda_device) for a in cpu))
+    assert dispersion.LAUNCHES == before + 1
+    want = tsp.dispersion_final(*cpu)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                   atol=1e-12 * float(w[torch.isfinite(w)]
+                                                      .abs().max()),
+                                   equal_nan=True)

@@ -1,5 +1,7 @@
-"""The port's streaming theory and likelihood against victor_tpu and the
-reference fixtures (tests/fixtures/reference_boss.npz).
+"""The port's streaming theory and likelihood, its perf modes and its
+default batched entry point against victor_tpu and the reference fixtures
+(tests/fixtures/reference_boss.npz). The dispersion model's own tests are in
+test_torch_dispersion.py.
 
 Both packages get identical tables: the port's bundle is made with
 bundle_from_arrays from numpy copies of the JAX bundle's leaves. Parameter
@@ -17,6 +19,8 @@ import jax.numpy as jnp
 
 from victor_tpu.io import build_tables as jax_build_tables
 from victor_tpu.likelihood import core as jlk
+from victor_tpu.likelihood.batched import \
+    make_batched_loglike as jax_make_batched_loglike
 from victor_tpu.models import ccf_theory as jth
 from victor_tpu_torch.io.tables import bundle_from_arrays, tables_to_arrays
 from victor_tpu_torch.likelihood import core as tlk
@@ -246,7 +250,6 @@ class TestLikelihood:
 
 
 @pytest.mark.parametrize('opts_kw,item', [
-    ({'rsd_model': 'dispersion'}, 'Queue 1 item 6'),
     ({'rsd_model': 'kaiser'}, 'Queue 1 item 6'),
     ({'rsd_model': 'euclid_special'}, 'Queue 1 item 6'),
     ({'assume_isotropic': False}, 'Queue 1 item 6'),
@@ -254,21 +257,144 @@ class TestLikelihood:
     ({'mean_model': 'template'}, 'Queue 1 item 6'),
     ({'matter_model': 'linear_bias'}, 'Queue 1 item 6'),
     ({'matter_model': 'excursion_set'}, 'Queue 1 item 7'),
-    ({'streaming_eval': 'fast'}, 'Queue 1 item 5'),
-    ({'beta_covariance': 'factored'}, 'Queue 1 item 5'),
-    ({'dispersion_final': 'fused'}, 'Queue 2 item 2'),
+    ({'rsd_model': 'dispersion', 'assume_isotropic': False}, 'Queue 1 item 6'),
 ])
 def test_unported_options_raise(tb, opts_kw, item):
     with pytest.raises(NotImplementedError, match=item):
         _lnl(tb, tp(GOLDEN), opts_kw=opts_kw)
 
 
-def test_default_batched_loglike_raises_until_fast_modes_land(tb):
-    """gradient_free=True resolves 'auto' to streaming_eval='fast' and
-    beta_covariance='factored', which the port does not have yet."""
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
-        make_batched_loglike(tb, NAMES)
-    make_batched_loglike(tb, NAMES, gradient_free=False)
+def _beta_cases(grid):
+    """One beta per interpolation branch: interior blends, an exact grid
+    point, both edge grid points and both out-of-grid clamps (as
+    tests/test_factored_covariance.py picks them)."""
+    return [0.37, float(grid[0]), float(grid[-1]), float(grid[7]),
+            float(0.5 * (grid[2] + grid[3])), float(grid[0]) - 0.02,
+            float(grid[-1]) + 0.02]
+
+
+class TestFactoredCovariance:
+    @pytest.mark.parametrize('beta_interpolation', ['datavector',
+                                                    'likelihood'])
+    def test_matches_dense_every_branch(self, tb, beta_interpolation):
+        grid = tb.tables.beta_cov.numpy()
+        points = [{**GOLDEN, 'beta': b} for b in _beta_cases(grid)]
+        fit_kw = {'beta_interpolation': beta_interpolation}
+        le, ce = _lnl(tb, tp(*points), {'beta_covariance': 'exact'}, fit_kw)
+        lf, cf = _lnl(tb, tp(*points), {'beta_covariance': 'factored'}, fit_kw)
+        np.testing.assert_allclose(lf.numpy(), le.numpy(), rtol=1e-12)
+        np.testing.assert_allclose(cf.numpy(), ce.numpy(), rtol=1e-12)
+
+    def test_pencil_logdet_matches_dense_slogdet(self, tb):
+        grid = tb.tables.beta_cov
+        rng = np.random.default_rng(14)
+        betas = torch.tensor(_beta_cases(grid.numpy())
+                             + list(rng.uniform(float(grid[0]),
+                                                float(grid[-1]), 8)),
+                             dtype=torch.float64)
+        got, ok = tlk._pencil_like_factor(grid, tb.tables.cov_logdet,
+                                          tb.tables.cov_pencil, betas)
+        want, ok_dense = tlk._like_factor(
+            tlk.interpolated_covariance(tb.tables, tb.spec, betas))
+        assert ok.all() and ok_dense.all()
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-11)
+
+    def test_pencil_not_positive_definite_is_not_ok(self):
+        """A blend that is not positive definite (some (1-t) + t lam_i <= 0)
+        gives ok False off the grid and True at grid points and clamps."""
+        grid = torch.tensor([0.1, 0.2, 0.3], dtype=torch.float64)
+        logdets = torch.zeros(3, dtype=torch.float64)
+        lam = torch.tensor([[1.0, -5.0], [1.0, 1.0], [1.0, 1.0]],
+                           dtype=torch.float64)
+        betas = torch.tensor([0.15, 0.1, 0.25, 0.05, 0.35], dtype=torch.float64)
+        _, ok = tlk._pencil_like_factor(grid, logdets, lam, betas)
+        assert ok.tolist() == [False, True, True, True, True]
+
+    def test_row_interpolation_vs_jax(self, jb):
+        """_interp_rows on a (B, n) stack of scalars against victor_tpu's
+        _interp_matrix_stack on each row's (n,) stack."""
+        rng = np.random.default_rng(15)
+        grid = np.asarray(jb.tables.beta_cov)
+        betas = np.concatenate([_beta_cases(grid),
+                                rng.uniform(grid[0], grid[-1], 5)])
+        rows = rng.standard_normal((len(betas), len(grid)))
+        got = tlk._interp_rows(torch.tensor(grid), torch.tensor(rows),
+                               torch.tensor(betas)).numpy()
+        for i, b in enumerate(betas):
+            want = jlk._interp_matrix_stack(jnp.asarray(grid),
+                                            jnp.asarray(rows[i]),
+                                            jnp.asarray(b))
+            np.testing.assert_allclose(got[i], float(want), rtol=0, atol=1e-15)
+
+
+class TestStreamingFast:
+    def test_xi_vs_jax_and_bound(self, jb, tb):
+        points = [GOLDEN, DISPLACED]
+        fast = {'streaming_eval': 'fast'}
+        got = tth.theory_xi_grid(tb.tables, tb.spec,
+                                 tb.theory_opts.replace(**fast), tp(*points))
+        exact = tth.theory_xi_grid(tb.tables, tb.spec, tb.theory_opts,
+                                   tp(*points))
+        for i, p in enumerate(points):
+            want = jth.theory_xi_grid(jb.tables, jb.spec,
+                                      jb.theory_opts.replace(**fast), jp(p))
+            np.testing.assert_allclose(got[i].numpy(), np.asarray(want),
+                                       rtol=0, atol=1e-12)
+        assert float((got - exact).abs().max()) < 3e-5
+        lnl_f, chi_f = _lnl(tb, tp(*points), fast)
+        lnl_e, chi_e = _lnl(tb, tp(*points))
+        assert float((chi_f - chi_e).abs().max()) < 3e-2
+        assert float((lnl_f - lnl_e).abs().max()) < 3e-2
+
+    def test_mu_dependent_template_runs_exact_and_warns(self, tb, caplog):
+        """Without a rank-1 y_const sigma_v surface the fast mode cannot
+        compress it: it logs a warning and runs the exact evaluation."""
+        surf = dataclasses.replace(tb.tables.sv_surf, y_const=False)
+        tables = dataclasses.replace(tb.tables, sv_surf=surf)
+        with caplog.at_level('WARNING', logger='victor_tpu_torch.theory'):
+            fast = tth.theory_xi_grid(
+                tables, tb.spec, tb.theory_opts.replace(streaming_eval='fast'),
+                tp(GOLDEN))
+        exact = tth.theory_xi_grid(tables, tb.spec, tb.theory_opts, tp(GOLDEN))
+        assert torch.equal(fast, exact)
+        assert "streaming_eval='fast' ignored" in caplog.text
+
+
+@pytest.mark.parametrize('rsd_model', ['streaming', 'dispersion'])
+def test_default_batched_loglike_vs_jax_default(jb, tb, ref_fixtures,
+                                                rsd_model):
+    """The default gradient-free entry point (streaming_eval and
+    dispersion_final 'fast', beta_covariance 'factored') over the 50
+    reference grid points, against victor_tpu's default."""
+    gp = ref_fixtures['grid_params']
+    kw = {'rsd_model': rsd_model}
+    lnl, chisq = make_batched_loglike(tb, NAMES, opts_kw=kw, chunk=16)(gp)
+    jl, jc = jax_make_batched_loglike(jb, NAMES, opts_kw=kw,
+                                      chunk=16)(jnp.asarray(gp))
+    np.testing.assert_allclose(chisq.numpy(), np.asarray(jc), rtol=0,
+                               atol=1e-9)
+    np.testing.assert_allclose(lnl.numpy(), np.asarray(jl), rtol=0, atol=1e-9)
+
+
+def test_default_batched_loglike_resolves_the_fast_modes(tb, monkeypatch):
+    """gradient_free=True resolves 'auto' to the fast modes and keeps
+    explicit values; gradient_free=False keeps the exact ones."""
+    seen = []
+
+    def spy(tables, spec, opts, fit, params):
+        seen.append(opts)
+        return params['beta'], params['beta']
+
+    import victor_tpu_torch.likelihood.batched as tbatched
+    monkeypatch.setattr(tbatched, 'log_likelihood', spy)
+    theta = [[0.47, 0.37, 380.0, 1.0]]
+    make_batched_loglike(tb, NAMES)(theta)
+    make_batched_loglike(tb, NAMES, gradient_free=False)(theta)
+    make_batched_loglike(tb, NAMES, opts_kw={'streaming_eval': 'exact'})(theta)
+    modes = [(o.streaming_eval, o.dispersion_final, o.beta_covariance)
+             for o in seen]
+    assert modes == [('fast', 'fast', 'factored'), ('exact', 'fast', 'exact'),
+                     ('exact', 'fast', 'factored')]
 
 
 def test_unknown_rsd_model_is_an_input_error(tb):

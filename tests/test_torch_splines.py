@@ -172,3 +172,53 @@ def test_bicubic2d_matches_jax(kind):
     from scipy.interpolate import RectBivariateSpline
     ref = RectBivariateSpline(r, mu, z).ev(q.ravel(), p.ravel())
     np.testing.assert_allclose(got.ravel(), ref, rtol=0, atol=1e-11)
+
+
+def test_cheb_probe_inverse_equals_jax():
+    for degree in (24, 48):
+        for got, want in zip(tsp._cheb_probe_inverse(degree),
+                             jsp._cheb_probe_inverse(degree)):
+            np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize('degree', [24, 48])
+def test_chebyshev_fit_and_eval_match_jax(degree):
+    """Per-row domains [x0 * resc, xn * resc] and per-row spline values, as
+    the dispersion and streaming fast modes fit them; queries beyond both
+    ends (clamped into the domain) and NaN."""
+    rng = np.random.default_rng(30 + degree)
+    x = _knots(rng, 31)
+    y = rng.standard_normal((3, 31))
+    resc = rng.uniform(0.95, 1.05, 3)
+    a, b = x[0] * resc, x[-1] * resc
+    ts, js = tsp.Spline1D.build(x), jsp.Spline1D.build(x)
+    c = ts.coeffs(_t(y))
+    coef = tsp.chebyshev_fit(lambda r: ts.eval(c, r / _t(resc)[:, None]),
+                             _t(a), _t(b), degree)
+    assert coef.shape == (3, degree + 1)
+    q = rng.uniform(a.min() - 5.0, b.max() + 5.0, (3, 7, 40))
+    q[:, 0, :2] = np.nan
+    got = tsp.chebyshev_eval(coef, _t(a), _t(b), _t(q)).numpy()
+    for i in range(3):
+        jc = js.coeffs(jnp.asarray(y[i]))
+        jcoef = jsp.chebyshev_fit(lambda r: js.eval(jc, r / resc[i]), a[i],
+                                  b[i], degree)
+        np.testing.assert_allclose(coef[i].numpy(), np.asarray(jcoef), rtol=0,
+                                   atol=ATOL)
+        want = np.asarray(jsp.chebyshev_eval(jcoef, a[i], b[i],
+                                             jnp.asarray(q[i])))
+        np.testing.assert_allclose(got[i], want, rtol=0, atol=ATOL,
+                                   equal_nan=True)
+    assert np.isnan(got).sum() == 6
+
+
+def test_chebyshev_interpolates_at_its_nodes():
+    """The fit reproduces fn at the Chebyshev nodes of each row's domain."""
+    a = _t([0.5, 2.0])
+    b = _t([3.0, 9.0])
+    fn = lambda r: torch.sin(r) * r          # noqa: E731
+    coef = tsp.chebyshev_fit(fn, a, b, degree=16)
+    _, nodes = tsp._cheb_probe_inverse(16)
+    rn = 0.5 * (a + b)[:, None] + 0.5 * (b - a)[:, None] * _t(nodes)
+    np.testing.assert_allclose(tsp.chebyshev_eval(coef, a, b, rn).numpy(),
+                               fn(rn).numpy(), rtol=0, atol=1e-13)

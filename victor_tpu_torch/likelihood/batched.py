@@ -3,14 +3,14 @@
 The port of `victor_tpu/likelihood/batched.py:29-135`. The likelihood core
 already carries a leading batch axis, so the batch is a tensor dimension in
 place of `jax.vmap`; `chunk` bounds peak memory, since one f64 (n_v, q)
-intermediate is 1.2 MB per parameter point at BOSS size.
+intermediate is 1.2 MB per parameter point at BOSS size. Both RSD models the
+theory layer ports (streaming, dispersion) run through it, in every perf mode.
 
 Typical use::
 
     bundle = build_tables(cfg['model'], cfg['data'], device='cuda')
     batched = make_batched_loglike(
-        bundle, ['fsigma8', 'beta', 'sigma_v', 'epsilon'], chunk=64,
-        opts_kw={'streaming_eval': 'exact', 'beta_covariance': 'exact'})
+        bundle, ['fsigma8', 'beta', 'sigma_v', 'epsilon'], chunk=64)
     lnl, chi2 = batched(theta)           # theta: (N, 4) -> (N,), (N,)
 """
 
@@ -22,7 +22,6 @@ import torch
 
 from ..config import resolve_perf_mode
 from ..io.tables import CCFModelBundle
-from ..models.ccf_theory import require_exact_perf_modes
 from .core import log_likelihood
 
 
@@ -53,7 +52,6 @@ def make_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
     'auto' perf modes stay unresolved and evaluate exactly."""
     opts = bundle.theory_opts.replace(**(opts_kw or {}))
     fit = bundle.fit_opts.replace(**(fit_kw or {}))
-    require_exact_perf_modes(opts)
     names = tuple(param_names)
 
     def fn(theta):
@@ -78,15 +76,13 @@ def make_batched_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
     rows are discarded, so every chunk has the same shape. None evaluates
     the whole batch at once.
 
-    'auto' perf modes resolve as in victor_tpu (config.resolve_perf_mode);
-    on the default gradient-free path they resolve to streaming_eval='fast'
-    and beta_covariance='factored', which are not ported yet and raise
-    NotImplementedError. Pass opts_kw={'streaming_eval': 'exact',
-    'beta_covariance': 'exact'}.
+    'auto' perf modes resolve as in victor_tpu (config.resolve_perf_mode):
+    on the default gradient-free path to streaming_eval='fast',
+    dispersion_final='fast' and beta_covariance='factored'. Explicit values
+    in `opts_kw` are kept.
     """
     opts = resolve_perf_mode(bundle.theory_opts.replace(**(opts_kw or {})),
                              gradient_free)
-    require_exact_perf_modes(opts)
     fit = bundle.fit_opts.replace(**(fit_kw or {}))
     names = tuple(param_names)
 

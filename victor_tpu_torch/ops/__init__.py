@@ -1,4 +1,5 @@
 from .splines import (Spline1D, PchipTable, Bicubic2D, ppoly_eval, pchip_eval,
+                      dispersion_final, chebyshev_fit, chebyshev_eval,
                       cubic_deriv_operator, hermite_coeffs, spline_eval_matrix,
                       gradient_matrix, pchip_coeffs)
 from .integrate import trapz_weights, simpson_weights
@@ -8,6 +9,7 @@ from .operators import (multipole_projection_matrix, enclosed_density_operator,
 
 __all__ = [
     'Spline1D', 'PchipTable', 'Bicubic2D', 'ppoly_eval', 'pchip_eval',
+    'dispersion_final', 'chebyshev_fit', 'chebyshev_eval',
     'cubic_deriv_operator', 'hermite_coeffs', 'spline_eval_matrix',
     'gradient_matrix', 'pchip_coeffs',
     'trapz_weights', 'simpson_weights', 'legendre_p',

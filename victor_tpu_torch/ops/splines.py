@@ -7,18 +7,24 @@ finds the interval and evaluates the local cubic. The host half is a copy of
 the JAX package's numpy code; the device half works on tensors with a leading
 batch axis.
 
-Piecewise-cubic evaluation (`ppoly_eval`) runs the hand-written CUDA kernel
-for CUDA tensors and its plain PyTorch version for CPU tensors
-(`kernels/ppoly.py`). Nothing moves a CUDA tensor to the CPU.
+Piecewise-cubic evaluation (`ppoly_eval`) and the dispersion model's final
+stage (`dispersion_final`) run their hand-written CUDA kernels for CUDA
+tensors and their plain PyTorch versions for CPU tensors
+(`kernels/ppoly.py`, `kernels/dispersion.py`). Nothing moves a CUDA tensor
+to the CPU. The Chebyshev compressions (`chebyshev_fit`, `chebyshev_eval`)
+behind the gradient-free perf modes are plain PyTorch, as XLA fused them in
+the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from ..kernels import dispersion as _dispersion
 from ..kernels.ppoly import ppoly_eval_cuda, ppoly_eval_plain
 
 
@@ -128,6 +134,66 @@ def ppoly_eval(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
     else:
         out = ppoly_eval_plain(x, c, q2, clamp)
     return out.reshape(q.shape)
+
+
+def dispersion_final(x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel):
+    """The dispersion model's final stage in one pass: the exact final Picard
+    update and the Jacobian's v_r and dv_r lookups (shapes in
+    `kernels/dispersion.py`). Returns (r_par, rr, mu_r, jacobian), each
+    (B, n_v, q).
+
+    CUDA tensors go to the CUDA kernel, which raises on what it cannot take;
+    CPU tensors go to the plain version.
+    """
+    args = tuple(t.contiguous() for t in (x, c_vr, c_dvr, r_par, A, s_perp,
+                                          iaH, resc_vel))
+    if r_par.is_cuda:
+        return _dispersion.dispersion_final_cuda(*args)
+    _dispersion.check_args(*args)
+    return _dispersion.dispersion_final_plain(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def _cheb_probe_inverse(degree: int) -> tuple:
+    """(INV, nodes): the inverse of the Chebyshev collocation matrix at the
+    degree+1 Chebyshev points (coef = INV @ f(nodes)) and the node cosines,
+    as float64 numpy arrays."""
+    k = np.arange(degree + 1)
+    nodes = np.cos((2 * k + 1) * np.pi / (2 * (degree + 1)))
+    T = np.cos(np.outer(np.arccos(nodes), np.arange(degree + 1)))
+    return np.linalg.inv(T), nodes
+
+
+def chebyshev_fit(fn, a, b, degree: int = 32):
+    """Fit fn on [a[i], b[i]] per batch row by a degree-`degree` Chebyshev
+    interpolant (victor_tpu/ops/splines.py:475-491).
+
+    a, b: (B,) domains. fn maps (B, degree+1) nodes to values of the same
+    shape. Returns the (B, degree+1) coefficients. Use only where a
+    downstream contraction bounds the fit error (models/ccf_theory.py).
+    """
+    inv, nodes = _cheb_probe_inverse(degree)
+    mid = 0.5 * (a + b)
+    half = 0.5 * (b - a)
+    rn = mid[:, None] + half[:, None] * _tensor(nodes, a.device, a.dtype)
+    f = fn(rn)
+    return torch.einsum('ij,bj->bi', _tensor(inv, a.device, a.dtype), f)
+
+
+def chebyshev_eval(coef, a, b, q):
+    """Clenshaw evaluation of per-row Chebyshev series on [a, b]: coef
+    (B, K), a and b (B,), q (B, ...) -> q's shape. q is clamped into the
+    domain by `torch.clamp`, which keeps NaN. The recurrence is the JAX
+    package's, step for step."""
+    shape = (-1,) + (1,) * (q.ndim - 1)
+    a, b = a.reshape(shape), b.reshape(shape)
+    u = torch.clamp((2.0 * q - (a + b)) / (b - a), -1.0, 1.0)
+    u2 = 2.0 * u          # `2.0 * u * b1` is (2.0 * u) * b1: hoisted, same bits
+    b1 = torch.zeros_like(u)
+    b2 = torch.zeros_like(u)
+    for k in range(coef.shape[1] - 1, 0, -1):
+        b1, b2 = u2 * b1 - b2 + coef[:, k].reshape(shape), b1
+    return u * b1 - b2 + coef[:, 0].reshape(shape)
 
 
 def pchip_eval(x, coeffs, q):
