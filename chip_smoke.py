@@ -12,8 +12,10 @@ result line is printed):
    nvcc process per source, started together;
 3. hold the ppoly_eval kernel against its plain PyTorch version at the main
    path's shapes, in f64 and f32, with clamp on and off, on queries that mix
-   out-of-range, on-knot, NaN and infinite values; time both with CUDA
-   events;
+   out-of-range, on-knot, NaN and infinite values; then its multi-channel
+   form (K = 2 and 3 tables of 30 knots over one query set, per-point and
+   shared tables), including channel k against the single-channel kernel on
+   table k, bit for bit; time both versions with CUDA events;
 4. hold the dispersion_final kernel against its plain version on the final
    stage's inputs from the port's own dispersion model (64 parameter points,
    50 x 3000 points each) with NaN, out-of-range and near-knot entries
@@ -29,7 +31,19 @@ result line is printed):
 7. the default gradient-free modes (make_batched_loglike with no opts_kw)
    of both models, held to victor_tpu's own bounds against the exact modes,
    and the factored covariance against the dense one;
-8. time 4096 parameter points in six configurations (for information).
+8. the other RSD, matter and real-space options on the BOSS data (kaiser
+   with and without the coordinate shift and the approximation,
+   euclid_special, linear_bias, anisotropic real-space input,
+   realspace_ccf_from_data) at the golden and a displaced point against
+   victor_tpu's values (OPTION_GOLDENS), with the ppoly_eval launches of
+   each path;
+9. the excursion-set fit configs/esm_sampling_config.yaml at full BOSS width
+   (Eisenstein-Hu P(k), f64, chunk 64): chi2 and lnL at the config's ref
+   point against victor_tpu's (ESM_GOLDENS) for the streaming and the
+   dispersion model, and the dispersion model's fused final stage against
+   its exact one on 64 points of the prior box;
+10. time 4096 parameter points in every configuration above (for
+   information).
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}. `--profile PATH` also writes a
@@ -38,6 +52,7 @@ torch.profiler summary of one batch of each timed configuration to PATH.
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -68,6 +83,65 @@ CHUNK = 64
 N_POINTS = 150_000            # n_v * n_mu * n_s at BOSS size
 TOL = {'float64': 1e-12, 'float32': 1e-5}
 KERNELS = ('ppoly_eval', 'dispersion_final')
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+FP64_FLOPS = 34e12            # H100 SXM f64 outside the tensor cores
+FP32_FLOPS = 67e12            # H100 SXM f32 outside the tensor cores
+
+# The other options on the BOSS data: (model-block replacements of
+# configs/boss_config.yaml, theory options, extra parameters).
+OPTION_CASES = {
+    'kaiser': ({}, {'rsd_model': 'kaiser'}, {}),
+    'kaiser, no coord shift': (
+        {}, {'rsd_model': 'kaiser', 'kaiser_coord_shift': False}, {}),
+    'kaiser, approximation': (
+        {}, {'rsd_model': 'kaiser', 'kaiser_approximation': True}, {}),
+    'kaiser, approximation, no coord shift': (
+        {}, {'rsd_model': 'kaiser', 'kaiser_approximation': True,
+             'kaiser_coord_shift': False}, {}),
+    'euclid_special': ({}, {'rsd_model': 'euclid_special'}, {}),
+    'linear_bias': ({'matter_ccf': {'model': 'linear_bias', 'bias': 1.9,
+                                    'template_sigma8': 0.628}}, {},
+                    {'bias': 1.9}),
+    'assume_isotropic=False': ({}, {'assume_isotropic': False}, {}),
+    'realspace_ccf_from_data': (
+        {'matter_ccf': {'model': 'linear_bias', 'bias': 1.9},
+         'realspace_ccf': {'reconstruction': True, 'beta_key': 'beta',
+                           'format': 'multipoles',
+                           'ccf_keys': ['r', 'monopole', 'quadrupole'],
+                           'assume_isotropic': True, 'from_data': True}},
+        {}, {'bias': 1.9}),
+}
+# [chi2, lnL] at GOLDEN and at DISPLACED of each case: victor_tpu on the CPU
+# in f64 with streaming_eval and beta_covariance 'exact', recomputed and
+# compared with these literals by
+# tests/test_torch_models.py::test_chip_smoke_goldens_match_victor_tpu
+OPTION_GOLDENS = {
+    'kaiser': [[103.90334973043412, 266.8145635915305],
+               [135.48492361103663, 252.8322158321048]],
+    'kaiser, no coord shift': [[224.80671363329242, 214.80449039428282],
+                               [209.96355190759368, 221.0398719623626]],
+    'kaiser, approximation': [[637.5782299908184, 69.48381083058015],
+                              [760.3149807475982, 33.459324997829924]],
+    'kaiser, approximation, no coord shift': [
+        [788.8786198337265, 25.27272513139974],
+        [849.0928657165173, 8.844471914694964]],
+    'euclid_special': [[4880.289795000572, -569.9303663708826],
+                       [6267.705008541248, -675.7298948601889]],
+    'linear_bias': [[60.62398594067092, 286.8305618815296],
+                    [111.94397890650099, 263.31654121889386]],
+    'assume_isotropic=False': [[64.3865793192118, 285.05826862045296],
+                               [94.92951377149906, 271.03344784912537]],
+    'realspace_ccf_from_data': [[60.46448418909605, 286.9058309201396],
+                                [104.15990395534946, 266.832233089541]],
+}
+# the ref point (the `ref` locs) of configs/esm_sampling_config.yaml, and
+# [chi2, lnL] there from victor_tpu on the CPU in f64 with exact modes
+# (dispersion: exact interior and final stage), checked as OPTION_GOLDENS
+ESM_REF = {'f': 0.78, 'sigma_8_0': 0.81, 'b10': -1.544, 'b01': -4.228,
+           'Rp': 7.973, 'Rx': 0.467, 'beta': 0.4, 'sigma_v': 380.0,
+           'epsilon': 1.0}
+ESM_GOLDENS = {'streaming': [85.02881334423897, 275.4473891792755],
+               'dispersion': [84.35647845450578, 275.75759471303223]}
 
 
 def check(ok, what):
@@ -76,11 +150,12 @@ def check(ok, what):
     print(f'  ok: {what}', flush=True)
 
 
-def boss_config():
-    """configs/boss_config.yaml, reading the .npz copies of its HDF5 files
-    (data/BOSS_DR12_CMASS_npz): the script must run where h5py is absent."""
+def load_config(name='boss_config.yaml'):
+    """A config of configs/ on the BOSS data, reading the .npz copies of its
+    HDF5 files (data/BOSS_DR12_CMASS_npz): the script must run where h5py is
+    absent."""
     import yaml
-    with open(os.path.join(REPO, 'configs', 'boss_config.yaml')) as f:
+    with open(os.path.join(REPO, 'configs', name)) as f:
         cfg = yaml.safe_load(f)
 
     def npz(path):
@@ -138,9 +213,64 @@ def time_in_turns(label, kernel, plain):
     return ms_k, ms_p
 
 
+def planted_queries(x, x_np, B, M, dtype, gen):
+    """(B, M) queries reaching 10% of the span beyond both ends of the knots
+    x, with 4096 on-knot queries scattered and every knot, NaN, +inf and
+    -inf planted at the front of each row."""
+    import torch
+    n = len(x_np)
+    span = float(x_np[-1] - x_np[0])
+    q = torch.rand((B, M), generator=gen, device='cuda', dtype=torch.float64)
+    q = (x_np[0] - 0.1 * span + 1.2 * span * q).to(dtype)
+    flat = q.view(-1)
+    on_knot = torch.randint(0, B * M, (4096,), generator=gen, device='cuda')
+    flat[on_knot] = x[torch.randint(0, n, (4096,), generator=gen,
+                                    device='cuda')]
+    q[:, :n] = x
+    q[:, n] = float('nan')
+    q[:, n + 1] = float('inf')
+    q[:, n + 2] = float('-inf')
+    return q
+
+
+def ppoly_ops(n, K):
+    """Operations per query of ppoly_eval: two clamp selects, the binary
+    search's compares, the offset, and per channel three FMAs (six flops)
+    and the two of the NaN term."""
+    return 3 + math.ceil(math.log2(n - 1)) + 8 * K
+
+
+def bound(nbytes, ops, dtype):
+    """(bound_ms, bound_by): the least time for `nbytes` of device memory
+    traffic and `ops` operations at the H100 SXM's peak rates."""
+    import torch
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / (FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS)
+    return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops \
+        else 'operations'
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def compare_outputs(label, out_k, out_p, dtype):
+    """Check NaN and inf positions identical and |kernel - plain| within the
+    tolerance of `dtype` times max|plain|; returns the max abs error."""
+    import torch
+    check(torch.equal(torch.isnan(out_k), torch.isnan(out_p)) and
+          torch.equal(torch.isinf(out_k), torch.isinf(out_p)),
+          f'{label}: NaN and inf positions identical')
+    fin = torch.isfinite(out_p)
+    err = float((out_k - out_p)[fin].abs().max())
+    tol = TOL[str(dtype)[6:]] * float(out_p[fin].abs().max())
+    check(err <= tol, f'{label}: max|kernel - plain| = {err:.3e} <= {tol:.3e}')
+    return err
+
+
 def compare_case(n, batch_coeffs, dtype, clamp, gen):
     """One kernel-vs-plain comparison at (64, 150000) queries; returns
-    (max_abs_err, kernel ms, plain ms)."""
+    (max_abs_err, kernel ms, plain ms, bytes, operations)."""
     import numpy as np
     import torch
     from victor_tpu_torch.kernels.ppoly import ppoly_eval_cuda, ppoly_eval_plain
@@ -154,17 +284,7 @@ def compare_case(n, batch_coeffs, dtype, clamp, gen):
     y = torch.as_tensor(rng.standard_normal((rows, n)), device='cuda')
     coeffs = spline.coeffs(y).to(dtype).contiguous()
     x = spline.x.to(dtype)
-    span = float(x_np[-1] - x_np[0])
-    q = torch.rand((B, M), generator=gen, device='cuda', dtype=torch.float64)
-    q = (x_np[0] - 0.1 * span + 1.2 * span * q).to(dtype)
-    flat = q.view(-1)
-    on_knot = torch.randint(0, B * M, (4096,), generator=gen, device='cuda')
-    flat[on_knot] = x[torch.randint(0, n, (4096,), generator=gen,
-                                    device='cuda')]
-    q[:, :n] = x
-    q[:, n] = float('nan')
-    q[:, n + 1] = float('inf')
-    q[:, n + 2] = float('-inf')
+    q = planted_queries(x, x_np, B, M, dtype, gen)
     if not batch_coeffs:
         q = q.reshape(1, -1)     # as ops.ppoly_eval passes a shared table
 
@@ -173,18 +293,53 @@ def compare_case(n, batch_coeffs, dtype, clamp, gen):
     torch.cuda.synchronize()
     label = (f'n={n} coeffs=({rows},{n - 1},4) q={tuple(q.shape)} '
              f'{str(dtype)[6:]} clamp={clamp}')
-    check(torch.equal(torch.isnan(out_k), torch.isnan(out_p)) and
-          torch.equal(torch.isinf(out_k), torch.isinf(out_p)),
-          f'{label}: NaN and inf positions identical')
-    fin = torch.isfinite(out_p)
-    err = float((out_k - out_p)[fin].abs().max())
-    scale = float(out_p[fin].abs().max())
-    tol = TOL[str(dtype)[6:]] * scale
-    check(err <= tol, f'{label}: max|kernel - plain| = {err:.3e} <= {tol:.3e}')
-
+    err = compare_outputs(label, out_k, out_p, dtype)
     ms_k, ms_p = time_in_turns(label, lambda: ppoly_eval_cuda(x, coeffs, q, clamp),
                                lambda: ppoly_eval_plain(x, coeffs, q, clamp))
-    return err, ms_k, ms_p
+    return (err, ms_k, ms_p, nbytes(x, coeffs, q, out_k),
+            q.numel() * ppoly_ops(n, 1))
+
+
+def compare_multi(K, shared, dtype, gen):
+    """The multi-channel kernel against its plain version at the anisotropic
+    real-space shape: K tables of 30 knots (one per multipole), per point
+    or shared, over (64, 150000) queries with clamp. Channel k must equal
+    the single-channel kernel on table k bit for bit, and a 1-channel call
+    the single-channel path. Returns (max_abs_err, kernel ms, plain ms,
+    bytes, operations)."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels.ppoly import ppoly_eval_cuda, ppoly_eval_plain
+    from victor_tpu_torch.ops.splines import Spline1D
+
+    B, M, n = CHUNK, N_POINTS, 30
+    rng = np.random.default_rng(100 + 10 * K + shared)
+    x_np = np.sort(rng.uniform(2.0, 120.0, n))
+    spline = Spline1D.build(x_np, device='cuda', dtype=torch.float64)
+    y = torch.as_tensor(rng.standard_normal((1 if shared else B, K, n)),
+                        device='cuda')
+    coeffs = spline.coeffs(y).to(dtype).contiguous()      # (Bc, K, 29, 4)
+    x = spline.x.to(dtype)
+    q = planted_queries(x, x_np, B, M, dtype, gen)
+    out_k = ppoly_eval_cuda(x, coeffs, q)
+    out_p = ppoly_eval_plain(x, coeffs, q)
+    torch.cuda.synchronize()
+    label = (f'multi-channel K={K} coeffs={tuple(coeffs.shape)} '
+             f'q={tuple(q.shape)} {str(dtype)[6:]}')
+    err = compare_outputs(label, out_k, out_p, dtype)
+    same = all(torch.equal(torch.nan_to_num(out_k[:, k]), torch.nan_to_num(
+        ppoly_eval_cuda(x, coeffs[:, k].contiguous(), q))) for k in range(K))
+    one = ppoly_eval_cuda(x, coeffs[:, :1].contiguous(), q)[:, 0]
+    same_one = torch.equal(torch.nan_to_num(one), torch.nan_to_num(
+        ppoly_eval_cuda(x, coeffs[:, 0].contiguous(), q)))
+    torch.cuda.synchronize()
+    check(same and same_one, f'{label}: each channel equals the '
+                             'single-channel kernel on its table bit for bit, '
+                             'and a 1-channel call the single-channel path')
+    ms_k, ms_p = time_in_turns(label, lambda: ppoly_eval_cuda(x, coeffs, q),
+                               lambda: ppoly_eval_plain(x, coeffs, q))
+    return (err, ms_k, ms_p, nbytes(x, coeffs, q, out_k),
+            q.numel() * ppoly_ops(n, K))
 
 
 def build_kernels():
@@ -245,8 +400,8 @@ def dispersion_final_inputs(bundle):
 
 def compare_dispersion(inputs, dtype):
     """The dispersion_final kernel against its plain version at the path's
-    shape; returns (max_abs_err over the four outputs, kernel ms, plain
-    ms)."""
+    shape; returns (max_abs_err over the four outputs, kernel ms, plain ms,
+    bytes, operations)."""
     import torch
     from victor_tpu_torch.kernels.dispersion import (dispersion_final_cuda,
                                                      dispersion_final_plain)
@@ -259,20 +414,16 @@ def compare_dispersion(inputs, dtype):
              f'coeffs={tuple(args[1].shape)} {str(dtype)[6:]}')
     worst = 0.0
     for name, k, p in zip(('r_par', 'rr', 'mu_r', 'jac'), out_k, out_p):
-        check(torch.equal(torch.isnan(k), torch.isnan(p)) and
-              torch.equal(torch.isinf(k), torch.isinf(p)) and
-              bool(torch.isnan(p).any()),
-              f'{label} {name}: NaN and inf positions identical')
-        fin = torch.isfinite(p)
-        err = float((k - p)[fin].abs().max())
-        tol = TOL[str(dtype)[6:]] * float(p[fin].abs().max())
-        check(err <= tol, f'{label} {name}: max|kernel - plain| = {err:.3e} '
-                          f'<= {tol:.3e}')
-        worst = max(worst, err)
+        check(bool(torch.isnan(p).any()), f'{label} {name}: NaN planted')
+        worst = max(worst, compare_outputs(f'{label} {name}', k, p, dtype))
 
     ms_k, ms_p = time_in_turns(label, lambda: dispersion_final_cuda(*args),
                                lambda: dispersion_final_plain(*args))
-    return worst, ms_k, ms_p
+    # per element: two interval searches with their clamps, three Horner
+    # evaluations, two square roots and about 30 flops of the update and the
+    # Jacobian: about 70 operations
+    return (worst, ms_k, ms_p, nbytes(*args, *out_k),
+            args[3].numel() * 70)
 
 
 def dispersion_paths(bundle, ref, grid):
@@ -373,19 +524,131 @@ def default_modes(bundle, disp_bundle, grid):
     factored(d_cf, d_ce, 'dispersion (Chebyshev interior, exact final)')
 
 
+def option_paths(cfg):
+    """Phase 8: each of OPTION_CASES as a batched likelihood (exact modes,
+    f64) at the golden and the displaced point against victor_tpu's values,
+    within 1e-8, with the ppoly_eval launches of its run. Returns {name:
+    (bundle, opts_kw, base params, (launches, multi-channel launches))}."""
+    import copy
+    import torch
+    from victor_tpu_torch.io.tables import build_tables
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+
+    out = {}
+    for name, (edits, opts_kw, extra) in OPTION_CASES.items():
+        b = build_tables({**copy.deepcopy(cfg['model']), **edits},
+                         copy.deepcopy(cfg['data']), device='cuda')
+        loglike = make_batched_loglike(b, NAMES, base_params=extra,
+                                       opts_kw={**EXACT, **opts_kw},
+                                       chunk=CHUNK)
+        ppoly.LAUNCHES = ppoly.LAUNCHES_MULTI = 0
+        lnl, chi = loglike([GOLDEN, DISPLACED])
+        torch.cuda.synchronize()
+        launches = (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI)
+        for i, point in enumerate(('golden', 'displaced')):
+            want_chi, want_lnl = OPTION_GOLDENS[name][i]
+            got_chi, got_lnl = float(chi[i]), float(lnl[i])
+            check(abs(got_chi - want_chi) < 1e-8 and
+                  abs(got_lnl - want_lnl) < 1e-8,
+                  f'{name} at the {point} point: chi2 {got_chi:.10f} '
+                  f'({want_chi:.10f}), lnL {got_lnl:.10f} ({want_lnl:.10f}) '
+                  '(< 1e-8)')
+        check(launches[0] >= 1, f'{name}: ppoly_eval kernel launches '
+                                f'{launches[0]}, of them multi-channel '
+                                f'{launches[1]}')
+        out[name] = (b, opts_kw, extra, launches)
+    return out
+
+
+def draw_prior(cfg, n, seed, device):
+    """n points drawn uniformly from the prior box of a sampling config's
+    params block, (n, P) f64 in the block's order."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    box = [(p['prior']['min'], p['prior']['max'])
+           for p in cfg['params'].values()]
+    return torch.as_tensor(np.column_stack([rng.uniform(lo, hi, n)
+                                            for lo, hi in box]), device=device)
+
+
+def esm_paths():
+    """Phase 9: configs/esm_sampling_config.yaml at full BOSS width, f64,
+    chunk 64. chi2 and lnL at its ref point against ESM_GOLDENS (streaming,
+    exact modes; dispersion, exact interior and final stage), within 1e-8;
+    then the dispersion model's fused final stage against its exact one on
+    the ref point and 63 points of the prior box. Returns (bundle, parameter
+    names, config, ppoly_eval launches of the streaming run)."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.io.tables import build_tables
+    from victor_tpu_torch.kernels import dispersion, ppoly
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+
+    cfg = load_config('esm_sampling_config.yaml')
+    t0 = time.perf_counter()
+    b = build_tables(cfg['model'], cfg['data'], device='cuda')
+    print(f'build_tables (ESM): {time.perf_counter() - t0:.2f} s', flush=True)
+    names = list(cfg['params'])
+    ref = [ESM_REF[k] for k in names]
+    disp_exact = {**DISP_EXACT, 'dispersion_final': 'exact'}
+    launches = {}
+    for rsd, kw in (('streaming', EXACT), ('dispersion', disp_exact)):
+        ppoly.LAUNCHES = ppoly.LAUNCHES_MULTI = 0
+        lnl, chi = make_batched_loglike(b, names, opts_kw=kw,
+                                        chunk=CHUNK)([ref])
+        torch.cuda.synchronize()
+        launches[rsd] = (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI)
+        want_chi, want_lnl = ESM_GOLDENS[rsd]
+        got_chi, got_lnl = float(chi[0]), float(lnl[0])
+        check(abs(got_chi - want_chi) < 1e-8 and abs(got_lnl - want_lnl) < 1e-8,
+              f'ESM {rsd} at the ref point: chi2 {got_chi:.10f} '
+              f'({want_chi:.10f}), lnL {got_lnl:.10f} ({want_lnl:.10f}) '
+              '(< 1e-8)')
+        check(launches[rsd][0] >= 4,
+              f'ESM {rsd}: ppoly_eval kernel launches {launches[rsd][0]}, of '
+              f'them multi-channel {launches[rsd][1]} (>= 4)')
+
+    theta = draw_prior(cfg, CHUNK, 2, 'cuda')
+    theta[0] = torch.as_tensor(ref, device='cuda')
+    out = {}
+    for final in ('exact', 'fused'):
+        dispersion.LAUNCHES = 0
+        lnl, chi = make_batched_loglike(
+            b, names, opts_kw={**disp_exact, 'dispersion_final': final},
+            chunk=CHUNK)(theta)
+        torch.cuda.synchronize()
+        out[final] = (np.stack([chi.cpu().numpy(), lnl.cpu().numpy()]),
+                      dispersion.LAUNCHES)
+    a, e = out['fused'][0], out['exact'][0]
+    fin = np.isfinite(e)
+    rel = float((np.abs(a - e)[fin] / np.maximum(1.0, np.abs(e[fin]))).max())
+    check(np.array_equal(np.isfinite(a), fin) and rel <= 1e-12,
+          f"ESM dispersion 'fused' vs 'exact' on {CHUNK} points "
+          f'({int(fin.all(axis=0).sum())} finite): max |d| / max(1, |value|) '
+          f'of chi2 and lnL {rel:.3e} (<= 1e-12)')
+    check(out['fused'][1] >= 1 and out['exact'][1] == 0,
+          f"ESM dispersion_final kernel launches: 'fused' {out['fused'][1]}, "
+          f"'exact' {out['exact'][1]}")
+    return b, names, cfg, launches['streaming']
+
+
 def throughput(configs, card, profile_path):
-    """Phase 8 (information only): evaluations per second of 4096 points
-    drawn as bench.py draws them, chunk 64, one warm-up and three timed
-    reps per configuration."""
+    """Phase 10 (information only): evaluations per second of 4096 points,
+    chunk 64, one warm-up and three timed reps per configuration. Each
+    configuration is (label, bundle, parameter names, theta, opts_kw, base
+    params)."""
     import torch
     from victor_tpu_torch.likelihood.batched import make_batched_loglike
 
-    n = 4096
-    theta = draw_theta(n, 0, 'cuda')
     tables = []
-    for name, b, kw in configs:
-        loglike = make_batched_loglike(b, NAMES, opts_kw=kw, chunk=CHUNK)
-        loglike(theta)
+    for name, b, names, theta, kw, base in configs:
+        n = theta.shape[0]
+        loglike = make_batched_loglike(b, names, base_params=base, opts_kw=kw,
+                                       chunk=CHUNK)
+        lnl, _ = loglike(theta)
+        finite = int(torch.isfinite(lnl).sum())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -397,8 +660,9 @@ def throughput(configs, card, profile_path):
         rate = 3 * n / sum(times)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f'throughput {name}: {rate:.1f} evals/s (f64, {n} points, '
-              f'chunk {CHUNK}, reps {[round(t, 4) for t in times]} s, peak '
-              f'{peak_gb:.2f} GB) on {card}', flush=True)
+              f'{finite} finite, chunk {CHUNK}, reps '
+              f'{[round(t, 4) for t in times]} s, peak {peak_gb:.2f} GB) on '
+              f'{card}', flush=True)
         if profile_path:
             from torch.profiler import ProfilerActivity, profile
             with profile(activities=[ProfilerActivity.CPU,
@@ -414,6 +678,19 @@ def throughput(configs, card, profile_path):
         with open(profile_path, 'w') as f:
             f.write(card + '\n' + '\n\n'.join(tables) + '\n')
         print(f'profile tables written to {profile_path}', flush=True)
+
+
+def kernel_row(name, source, replaces, launches, result, dtype):
+    """One entry of the kernels summary line from a comparison's (max_abs_err,
+    kernel ms, plain ms, bytes, operations). No single PyTorch call computes
+    either kernel's function, so library_ms is null."""
+    err, ms, plain_ms, n_bytes, ops = result
+    bound_ms, bound_by = bound(n_bytes, ops, dtype)
+    return {'name': name, 'route': 'cuda',
+            'source': f'victor_tpu_torch/kernels/csrc/{source}',
+            'replaces': replaces, 'launches': launches, 'max_abs_err': err,
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': None}
 
 
 def main() -> int:
@@ -460,9 +737,15 @@ def main() -> int:
                                   (30, True, True), (25, False, False)):
             results[(str(dtype)[6:], n, batched, clamp)] = compare_case(
                 n, batched, dtype, clamp, gen)
+    # the real-space multipoles (K = 2 for the BOSS model, 3 with the
+    # hexadecapole), per point; shared tables as a model with fixed input
+    for dtype in (torch.float64, torch.float32):
+        for K, shared in ((2, False), (3, False), (2, True), (3, True)):
+            results[(str(dtype)[6:], 'multi', K, shared)] = compare_multi(
+                K, shared, dtype, gen)
 
     # ---- 4. dispersion_final kernel vs plain at the path's shape ----
-    cfg = boss_config()
+    cfg = load_config()
     t0 = time.perf_counter()
     bundle = build_tables(cfg['model'], cfg['data'], device='cuda',
                           dtype=torch.float64)
@@ -511,33 +794,55 @@ def main() -> int:
         bundle, theory_opts=bundle.theory_opts.replace(rsd_model='dispersion'))
     default_modes(bundle, disp_bundle, grid)
 
-    # ---- 8. throughput (information only) ----
-    throughput([('streaming exact', bundle, EXACT),
-                ('streaming default', bundle, None),
-                ('dispersion default', disp_bundle, None),
-                ("dispersion final 'fused', other modes default", disp_bundle,
-                 {'dispersion_final': 'fused'}),
-                ("dispersion final 'exact', other modes default", disp_bundle,
-                 {'dispersion_final': 'exact'}),
-                ('dispersion exact', bundle, {**DISP_EXACT,
-                                              'dispersion_final': 'exact'})],
-               card, args.profile)
+    # ---- 8. the other options on the BOSS data ----
+    print('other options:', flush=True)
+    options = option_paths(cfg)
 
-    key = ('float64', 31, True, True)
+    # ---- 9. the excursion-set fit at full width ----
+    print('excursion-set model:', flush=True)
+    esm_bundle, esm_names, esm_cfg, esm_launches = esm_paths()
+
+    # ---- 10. throughput (information only) ----
+    theta = draw_theta(4096, 0, 'cuda')
+    esm_theta = draw_prior(esm_cfg, 4096, 0, 'cuda')
+    esm_disp = dataclasses.replace(
+        esm_bundle,
+        theory_opts=esm_bundle.theory_opts.replace(rsd_model='dispersion'))
+    throughput(
+        [('streaming exact', bundle, NAMES, theta, EXACT, None),
+         ('streaming default', bundle, NAMES, theta, None, None),
+         ('dispersion default', disp_bundle, NAMES, theta, None, None),
+         ("dispersion final 'fused', other modes default", disp_bundle, NAMES,
+          theta, {'dispersion_final': 'fused'}, None),
+         ("dispersion final 'exact', other modes default", disp_bundle, NAMES,
+          theta, {'dispersion_final': 'exact'}, None),
+         ('dispersion exact', bundle, NAMES, theta,
+          {**DISP_EXACT, 'dispersion_final': 'exact'}, None)]
+        + [(f'{name} (exact modes)', b, NAMES, theta, {**EXACT, **kw}, extra)
+           for name, (b, kw, extra, _) in options.items()]
+        + [('ESM streaming exact', esm_bundle, esm_names, esm_theta, EXACT,
+            None),
+           ('ESM streaming default', esm_bundle, esm_names, esm_theta, None,
+            None),
+           ('ESM dispersion default', esm_disp, esm_names, esm_theta, None,
+            None)],
+        card, args.profile)
+
+    print(f'ESM streaming path launches (ppoly_eval, of them multi-channel): '
+          f'{esm_launches}', flush=True)
+    f64 = torch.float64
     print(f'card: {card}', flush=True)
-    print(json.dumps({'kernels': [{
-        'name': 'ppoly_eval', 'route': 'cuda',
-        'source': 'victor_tpu_torch/kernels/csrc/ppoly_eval.cu',
-        'replaces': 'victor_tpu/ops/splines.py:537',
-        'launches': launches, 'max_abs_err': results[key][0],
-        'ms': results[key][1], 'plain_ms': results[key][2]}, {
-        'name': 'dispersion_final', 'route': 'cuda',
-        'source': 'victor_tpu_torch/kernels/csrc/dispersion_final.cu',
-        'replaces': 'victor_tpu/ops/dispersion_pallas.py:32',
-        'launches': disp_launches,
-        'max_abs_err': disp_results['float64'][0],
-        'ms': disp_results['float64'][1],
-        'plain_ms': disp_results['float64'][2]}]}), flush=True)
+    print(json.dumps({'kernels': [
+        kernel_row('ppoly_eval', 'ppoly_eval.cu',
+                   'victor_tpu/ops/splines.py:537', launches,
+                   results[('float64', 31, True, True)], f64),
+        kernel_row('ppoly_eval, K = 2 channels (anisotropic real space)',
+                   'ppoly_eval.cu', 'victor_tpu/ops/splines.py:537',
+                   options['assume_isotropic=False'][3][1],
+                   results[('float64', 'multi', 2, False)], f64),
+        kernel_row('dispersion_final', 'dispersion_final.cu',
+                   'victor_tpu/ops/dispersion_pallas.py:32', disp_launches,
+                   disp_results['float64'], f64)]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -56,7 +56,8 @@ def tb(jb):
     return bundle_from_arrays(tables_to_arrays(jb.tables),
                               dataclasses.asdict(jb.spec),
                               dataclasses.asdict(jb.theory_opts),
-                              dataclasses.asdict(jb.fit_opts))
+                              dataclasses.asdict(jb.fit_opts),
+                              device='cpu')
 
 
 def _xi_vs_jax(jb, tb, opts_kw, points, jax_opts_kw=None):

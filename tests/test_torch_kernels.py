@@ -1,5 +1,6 @@
 """The CUDA kernels' wrappers, their build and their plain versions:
-ppoly_eval and the dispersion model's final stage.
+ppoly_eval (one table or K channels over one query set) and the dispersion
+model's final stage.
 
 This module imports neither jax nor victor_tpu, so it also runs on a GPU
 machine without them:
@@ -84,6 +85,21 @@ def test_cpu_tensors_take_the_plain_version():
     got = tsp.ppoly_eval(_t(x), _t(c), _t(q))
     want = ppoly.ppoly_eval_plain(_t(x), _t(c), _t(q))
     assert ppoly.LAUNCHES == before
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize('shared', [False, True])
+def test_multi_channel_cpu_tensors_take_the_plain_version(shared):
+    rng = np.random.default_rng(14)
+    x = _knots(rng, 30)
+    c = _coeffs(x, rng.standard_normal((3, 30) if shared else (2, 3, 30)))
+    q = _queries(rng, x, (2, 60))
+    before = (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI)
+    got = tsp.ppoly_eval_multi(_t(x), _t(c), _t(q))
+    assert (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI) == before
+    want = ppoly.ppoly_eval_plain(_t(x), _t(c if not shared else c[None]),
+                                  _t(q))
+    assert got.shape == (2, 3, 60)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
@@ -220,6 +236,55 @@ def test_cuda_tensors_launch_the_kernel_through_ops(cuda_device):
         want = call('cpu', surf)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                    atol=1e-12, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize('K', [2, 3, 4])
+@pytest.mark.parametrize('shared', [False, True])
+def test_multi_channel_kernel_matches_plain_on_card(cuda_device, dtype, tol,
+                                                    K, shared):
+    """K channels over one query set against the plain version, NaN and inf
+    positions identical; channel k equals the 1-channel kernel on table k
+    bit for bit."""
+    rng = np.random.default_rng(15 + K)
+    x = _knots(rng, 30)
+    c = _coeffs(x, rng.standard_normal((1 if shared else 16, K, 30)))
+    q = _queries(rng, x, (16, 3000))
+    args = [torch.as_tensor(a, device=cuda_device).to(dtype).contiguous()
+            for a in (x, c, q)]
+    before = (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI)
+    got = ppoly.ppoly_eval_cuda(*args)
+    assert (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = ppoly.ppoly_eval_plain(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (16, K, 3000)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    scale = float(want[fin].abs().max())
+    assert float((got - want)[fin].abs().max()) <= tol * scale
+    for k in range(K):
+        one = ppoly.ppoly_eval_cuda(args[0], args[1][:, k].contiguous(),
+                                    args[2])
+        assert torch.equal(torch.nan_to_num(one), torch.nan_to_num(got[:, k]))
+
+
+@pytest.mark.cuda
+def test_multi_channel_kernel_refuses_what_it_cannot_take(cuda_device):
+    """More than four channels, or more shared memory than a block takes."""
+    x = torch.linspace(0.0, 1.0, 400, dtype=torch.float64, device=cuda_device)
+    q = torch.rand(2, 10, dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match='channels'):
+        ppoly.ppoly_eval_cuda(x[:30], torch.zeros(2, 5, 29, 4, dtype=x.dtype,
+                                                  device=cuda_device), q)
+    with pytest.raises(ValueError, match='shared memory'):
+        ppoly.ppoly_eval_cuda(x, torch.zeros(2, 4, 399, 4, dtype=x.dtype,
+                                             device=cuda_device), q)
+    three = torch.zeros(2, 3, 399, 4, dtype=x.dtype, device=cuda_device)
+    assert ppoly.ppoly_eval_cuda(x, three, q).shape == (2, 3, 10)
 
 
 @pytest.mark.cuda

@@ -56,7 +56,8 @@ def tb(jb):
     return bundle_from_arrays(tables_to_arrays(jb.tables),
                               dataclasses.asdict(jb.spec),
                               dataclasses.asdict(jb.theory_opts),
-                              dataclasses.asdict(jb.fit_opts))
+                              dataclasses.asdict(jb.fit_opts),
+                              device='cpu')
 
 
 def _lnl(b, params, opts_kw=None, fit_kw=None):
@@ -247,21 +248,6 @@ class TestLikelihood:
                                  {'sigma_v': 380.0, 'beta': 9.0})
         assert params['sigma_v'].tolist() == [380.0, 380.0]
         assert params['beta'].tolist() == [0.3, 0.35]
-
-
-@pytest.mark.parametrize('opts_kw,item', [
-    ({'rsd_model': 'kaiser'}, 'Queue 1 item 6'),
-    ({'rsd_model': 'euclid_special'}, 'Queue 1 item 6'),
-    ({'assume_isotropic': False}, 'Queue 1 item 6'),
-    ({'realspace_ccf_from_data': True}, 'Queue 1 item 6'),
-    ({'mean_model': 'template'}, 'Queue 1 item 6'),
-    ({'matter_model': 'linear_bias'}, 'Queue 1 item 6'),
-    ({'matter_model': 'excursion_set'}, 'Queue 1 item 7'),
-    ({'rsd_model': 'dispersion', 'assume_isotropic': False}, 'Queue 1 item 6'),
-])
-def test_unported_options_raise(tb, opts_kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        _lnl(tb, tp(GOLDEN), opts_kw=opts_kw)
 
 
 def _beta_cases(grid):

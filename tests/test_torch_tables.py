@@ -46,7 +46,7 @@ def _assert_leaves_equal(got: dict, want: dict, keys=LEAVES):
 @pytest.fixture(scope='module')
 def boss_pair(boss_config):
     jb = jax_build_tables(boss_config['model'], boss_config['data'])
-    tb = build_tables(boss_config['model'], boss_config['data'])
+    tb = build_tables(boss_config['model'], boss_config['data'], device='cpu')
     return jb, tb
 
 
@@ -80,7 +80,7 @@ def test_bundle_from_arrays_round_trip(boss_pair):
     rb = bundle_from_arrays(tables_to_arrays(jb.tables),
                             dataclasses.asdict(jb.spec),
                             dataclasses.asdict(jb.theory_opts),
-                            dataclasses.asdict(jb.fit_opts))
+                            dataclasses.asdict(jb.fit_opts), device='cpu')
     _assert_leaves_equal(tables_to_arrays(rb.tables),
                          tables_to_arrays(tb.tables))
     assert rb.spec == tb.spec and rb.theory_opts == tb.theory_opts
@@ -160,18 +160,48 @@ def test_model_only_variants_equal_jax(boss_config, tmp_path, name):
     dispersion surface, the integrated template and constant dispersion."""
     model = _variant(name, boss_config, tmp_path)
     jb = jax_build_tables(copy.deepcopy(model))
-    tb = build_tables(copy.deepcopy(model))
+    tb = build_tables(copy.deepcopy(model), device='cpu')
     _assert_leaves_equal(tables_to_arrays(tb.tables),
                          tables_to_arrays(jb.tables))
     assert dataclasses.asdict(tb.spec) == dataclasses.asdict(jb.spec)
     assert tb.fit_opts is None
 
 
-def test_excursion_set_raises(boss_config):
+@pytest.mark.parametrize('esm_opts', [{'use_eisenstein_hu': True}, {}])
+def test_excursion_set_equal_jax(boss_config, esm_opts, caplog):
+    """The excursion-set fixtures: the k grid, its weights, the 50-point
+    evolution grid and the Eisenstein-Hu flag; a CAMB request without a
+    table falls back to Eisenstein-Hu with a warning. The CAMB table and
+    grid modes are in test_torch_esm.py."""
     model = copy.deepcopy(boss_config['model'])
-    model['matter_ccf'] = {'model': 'excursion_set'}
-    with pytest.raises(NotImplementedError, match='Queue 1 item 7'):
-        build_tables(model)
+    model['matter_ccf'] = {'model': 'excursion_set',
+                           'excursion_set_options': esm_opts}
+    jb = jax_build_tables(copy.deepcopy(model))
+    with caplog.at_level('WARNING', logger='victor_tpu_torch.io'):
+        tb = build_tables(copy.deepcopy(model), device='cpu')
+    _assert_leaves_equal(tables_to_arrays(tb.tables),
+                         tables_to_arrays(jb.tables))
+    assert dataclasses.asdict(tb.spec) == dataclasses.asdict(jb.spec)
+    assert tb.spec.esm_use_eh and tb.tables.esm_k.shape == (200,)
+    assert ('falling back to the Eisenstein-Hu' in caplog.text) == \
+        (not esm_opts)
+
+
+@pytest.mark.parametrize('entry', ['build_tables', 'bundle_from_arrays'])
+def test_default_device_is_the_card(boss_config, boss_pair, monkeypatch,
+                                    entry):
+    """Left at its default, the device is CUDA: without a card the entry
+    points raise rather than carry on on the CPU."""
+    jb, _ = boss_pair
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
+        if entry == 'build_tables':
+            build_tables(boss_config['model'], boss_config['data'])
+        else:
+            bundle_from_arrays(tables_to_arrays(jb.tables),
+                               dataclasses.asdict(jb.spec),
+                               dataclasses.asdict(jb.theory_opts),
+                               dataclasses.asdict(jb.fit_opts))
 
 
 @pytest.mark.parametrize('name', BOSS_FILES)

@@ -7,10 +7,10 @@ the extraction of the linear operators that let the per-evaluation path run
 as interval lookups and small matmuls: PCHIP coefficients over the beta
 grids, cubic-spline derivative operators, the enclosed-density and
 resampled-gradient operators, the bicubic dispersion surface, the multipole
-projection, the quadrature weights and the covariance stacks. The finished
-float64 arrays are moved to `device` as `dtype` once.
-
-The excursion-set matter model is not ported yet (ROADMAP Queue 1 item 7).
+projection, the quadrature weights, the covariance stacks and the
+excursion-set model's k grid and P(k) tables. The finished float64 arrays
+are moved to `device` as `dtype` once: the card unless the caller asks for
+the CPU.
 """
 
 from __future__ import annotations
@@ -35,10 +35,8 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class CCFTables:
-    """All arrays and operators needed for theory and likelihood.
-
-    The fields of `victor_tpu.io.tables.CCFTables` without the excursion-set
-    fixtures, which the port does not build yet."""
+    """All arrays and operators needed for theory and likelihood: the fields
+    of `victor_tpu.io.tables.CCFTables`."""
     # --- scalars ---
     iaH: Tensor
     template_sigma8: Optional[Tensor]
@@ -79,7 +77,14 @@ class CCFTables:
     mu_ap_w: Tensor                         # (50,) trapz weights
     proj: Tensor                            # (n_ell_s, n_mu)
     mu_grid: Tensor                         # (n_mu,)
+    # --- excursion-set model fixtures (None unless matter excursion_set) ---
     z_eff: Tensor
+    esm_k: Optional[Tensor]                 # (200,) log k grid
+    esm_kw: Optional[Tensor]                # (200,) trapz weights
+    esm_pk0: Optional[Tensor]               # (200,) CAMB P(k, z=0) table
+    esm_s80: Optional[Tensor]               # sigma8(0) of the fiducial table
+    esm_s8z: Optional[Tensor]               # sigma8(z_eff) of the fiducial table
+    esm_x50: Optional[Tensor]               # (50,) density_evolution grid
     # --- data side (None when built without a data block) ---
     s: Optional[Tensor]                     # (n_s,)
     beta_ccf: Optional[Tensor]
@@ -90,16 +95,26 @@ class CCFTables:
     icov: Optional[Tensor]
     # beta-covariance pencil factorization: grid logdets and generalized
     # eigenvalues of (C_end, C_b), for the 'factored' beta_covariance mode
-    # (still to be ported, ROADMAP Queue 1 item 5)
     cov_logdet: Optional[Tensor] = None     # (n_b,)
     cov_pencil: Optional[Tensor] = None     # (n_b, D)
+    # cosmology-grid CAMB mode (None unless pk_grid_file configured): log
+    # P(k) and generator sigma8 tables over a small cosmology grid, the axis
+    # names in TableSpec.esm_grid_names
+    esm_grid_axes: Optional[tuple] = None   # tuple of (n_a,) axis grids
+    esm_pk_grid: Optional[Tensor] = None    # (n_cells, nk) log P(k, 0)
+    esm_s80_grid: Optional[Tensor] = None   # (n_cells,)
+    esm_s8z_grid: Optional[Tensor] = None   # (n_cells,)
 
     def to(self, device, dtype) -> 'CCFTables':
         """A copy with every tensor on `device` as `dtype`."""
-        return CCFTables(**{
-            f.name: (None if v is None else v.to(device, dtype))
-            for f in dataclasses.fields(self)
-            for v in [getattr(self, f.name)]})
+        def move(v):
+            if v is None:
+                return None
+            if isinstance(v, tuple):
+                return tuple(a.to(device, dtype) for a in v)
+            return v.to(device, dtype)
+        return CCFTables(**{f.name: move(getattr(self, f.name))
+                            for f in dataclasses.fields(self)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,12 +178,24 @@ def _pencil_precompute(stack):
 # main builder
 # ---------------------------------------------------------------------------
 
+def _target_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device must exist. There is no
+    quiet fallback to the CPU: a caller who wants the CPU asks for it."""
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f'victor_tpu_torch: tables are built for {device}, but no CUDA '
+            "device is available; pass device='cpu' to run on the CPU")
+    return device
+
+
 def build_tables(model: dict, data: Optional[dict] = None,
-                 n_mu: int = 100, n_v: int = 50, device='cpu',
+                 n_mu: int = 100, n_v: int = 50, device='cuda',
                  dtype: torch.dtype = torch.float64) -> CCFModelBundle:
     """Build the bundle from reference-schema `model:` (and optional `data:`)
     dicts. The build runs in float64 numpy on the host; the tables then move
-    to `device` as `dtype`."""
+    to `device` as `dtype`: the card unless `device='cpu'` is asked for."""
+    device = _target_device(device)
     arrays, spec, theory_opts, fit_opts = _build_arrays(model, data, n_mu, n_v)
     return CCFModelBundle(tables=_tables_from_arrays(arrays, device, dtype),
                           spec=spec, theory_opts=theory_opts,
@@ -176,17 +203,20 @@ def build_tables(model: dict, data: Optional[dict] = None,
 
 
 def bundle_from_arrays(arrays: dict, spec: dict, theory_opts: dict,
-                       fit_opts: Optional[dict], device='cpu',
+                       fit_opts: Optional[dict], device='cuda',
                        dtype: torch.dtype = torch.float64) -> CCFModelBundle:
-    """A bundle from numpy arrays, e.g. copies of another build's leaves.
+    """A bundle from numpy arrays, e.g. copies of another build's leaves, on
+    `device` (the card unless `device='cpu'` is asked for) as `dtype`.
 
-    `arrays` maps every `CCFTables` field to an array or None, except the
-    nested splines, which are given by their leaves: 'spline_mult.x',
-    'spline_mult.deriv_op', 'spline_vel.x', 'spline_vel.deriv_op',
-    'sv_surf.x', 'sv_surf.y', 'sv_surf.cu', 'sv_surf.cv' and the flag
-    'sv_surf.y_const'. `spec`, `theory_opts` and `fit_opts` are the field
-    dicts of TableSpec, TheoryOptions and FitOptions (fit_opts may be None).
+    `arrays` maps every `CCFTables` field to an array, a tuple of arrays
+    ('esm_grid_axes') or None, except the nested splines, which are given by
+    their leaves: 'spline_mult.x', 'spline_mult.deriv_op', 'spline_vel.x',
+    'spline_vel.deriv_op', 'sv_surf.x', 'sv_surf.y', 'sv_surf.cu',
+    'sv_surf.cv' and the flag 'sv_surf.y_const'. `spec`, `theory_opts` and
+    `fit_opts` are the field dicts of TableSpec, TheoryOptions and
+    FitOptions (fit_opts may be None).
     """
+    device = _target_device(device)
     flat = dict(arrays)
     nested = {
         'spline_mult': ops.Spline1D(flat.pop('spline_mult.x'),
@@ -221,13 +251,18 @@ def tables_to_arrays(tables) -> dict:
         if f.name in _NESTED:
             for leaf in _NESTED[f.name]:
                 a = getattr(v, leaf)
-                out[f'{f.name}.{leaf}'] = a if isinstance(a, bool) else \
-                    np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+                out[f'{f.name}.{leaf}'] = a if isinstance(a, bool) else _host(a)
+        elif isinstance(v, tuple):
+            out[f.name] = tuple(_host(a) for a in v)
         elif v is not None:
-            out[f.name] = np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+            out[f.name] = _host(v)
         else:
             out[f.name] = None
     return out
+
+
+def _host(a) -> np.ndarray:
+    return np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
 
 
 def _tables_from_arrays(arrays: dict, device, dtype) -> CCFTables:
@@ -238,6 +273,8 @@ def _tables_from_arrays(arrays: dict, device, dtype) -> CCFTables:
             return None
         if isinstance(v, (ops.Spline1D, ops.Bicubic2D)):
             return v.to(device, dtype)
+        if isinstance(v, tuple):
+            return tuple(conv(a) for a in v)
         return torch.tensor(np.asarray(v, dtype=np.float64)).to(device, dtype)
     return CCFTables(**{f.name: conv(arrays.get(f.name))
                         for f in dataclasses.fields(CCFTables)})
@@ -393,12 +430,16 @@ def _build_arrays(model: dict, data: Optional[dict], n_mu: int, n_v: int):
         lb_Delta_op = ops.enclosed_density_operator(r, r_v)
         lb_delta100_op = respline_100 @ lb_delta_op
         lb_Delta100_op = respline_100 @ lb_Delta_op
-    elif matter_model == 'excursion_set':
-        raise NotImplementedError(
-            "matter_model='excursion_set' is not ported to victor_tpu_torch "
-            'yet (ROADMAP Queue 1 item 7)')
-    else:
+    elif matter_model != 'excursion_set':
         raise InputError(f'Invalid choice of matter_model {matter_model}')
+
+    # ESM fixtures (victor/excursion_set_profile.py:61; set_ESM_params
+    # ccf_model.py:494-536): P(k) is Eisenstein-Hu computed per call, a
+    # pregenerated CAMB table (tools/make_camb_table.py), or a grid of such
+    # tables over cosmology axes
+    esm, esm_use_eh, esm_grid_names = \
+        _esm_arrays(matter, base_dir, r) if matter_model == 'excursion_set' \
+        else ({}, True, ())
 
     # ---------------- velocity pdf (ccf_model.py:222-297) ----------------
     velocity = model['velocity_pdf']
@@ -433,7 +474,7 @@ def _build_arrays(model: dict, data: Optional[dict], n_mu: int, n_v: int):
         v_spl = IUS(r_for_v, vr_in, k=3, ext=3)
         vr_template_rv, vr_template_100 = v_spl(r_v), v_spl(rgrid100)
         has_velocity_template = True
-    if mean_model == 'nonlinear':
+    if mean_model == 'nonlinear' and matter_model != 'excursion_set':
         raise InputError('Cannot have nonlinear mean velocity model unless using '
                          'excursion_set matter model')
 
@@ -618,7 +659,7 @@ def _build_arrays(model: dict, data: Optional[dict], n_mu: int, n_v: int):
         sv_surf=ops.Bicubic2D.build_host(r_sv, mu_sv, sv_norm),
         x_nodes=x_nodes, vel_weights=vel_weights,
         mu_ap=mu_ap, mu_ap_w=mu_ap_w, proj=proj, mu_grid=mu_grid,
-        z_eff=z_eff,
+        z_eff=z_eff, **esm,
         s=s, beta_ccf=beta_ccf,
         data_mult_fixed=data_mult_fixed, data_mult_pchip_c=data_mult_pchip_c,
         beta_cov=beta_cov, cov=cov, icov=icov,
@@ -631,7 +672,65 @@ def _build_arrays(model: dict, data: Optional[dict], n_mu: int, n_v: int):
         fixed_covmat=fixed_covmat,
         has_velocity_template=has_velocity_template,
         has_matter_template=matter_model == 'template',
+        esm_use_eh=esm_use_eh, esm_grid_names=esm_grid_names,
         n_s=len(s) if s is not None else len(r),
         n_mu=n_mu, n_v=n_v,
     )
     return arrays, spec, theory_options_from_config(model), fit_opts
+
+
+def _esm_arrays(matter: dict, base_dir: str, r: np.ndarray) -> dict:
+    """The excursion-set fixtures of `victor_tpu/io/tables.py:426-490`: the
+    200-point log k grid and its trapezoid weights, the 50-point
+    density_evolution grid, and P(k) as Eisenstein-Hu (computed per call), a
+    CAMB table (`pk_table_file`) or a grid of CAMB tables over named
+    cosmology axes (`pk_grid_file`), each resampled onto the k grid by a
+    cubic spline. Without either file a CAMB request falls back to
+    Eisenstein-Hu with a warning, as the reference does
+    (excursion_set_profile.py:63-70). Returns (arrays, the TableSpec fields
+    esm_use_eh and esm_grid_names)."""
+    from scipy.interpolate import InterpolatedUnivariateSpline as IUS
+
+    esm_opts = matter.get('excursion_set_options') or {}
+    esm_k = np.logspace(-4, np.log10(2), 200)
+    out = dict(esm_k=esm_k, esm_kw=ops.trapz_weights(esm_k),
+               esm_x50=np.linspace(0.1, r.max(), 50))
+    use_eh = esm_opts.get('use_eisenstein_hu', False)
+    pk_table = esm_opts.get('pk_table_file')
+    pk_grid = esm_opts.get('pk_grid_file')
+    if not use_eh and pk_grid:
+        g = np.load(os.path.join(base_dir, pk_grid), allow_pickle=False)
+        names = tuple(str(s) for s in np.atleast_1d(g['axis_names']))
+        axes = [np.asarray(g[f'grid_{n}'], dtype=np.float64) for n in names]
+        for n, ax in zip(names, axes):
+            if ax.ndim != 1 or (len(ax) > 1 and not np.all(np.diff(ax) > 0)):
+                raise InputError(f'pk_grid_file axis {n} must be a strictly '
+                                 'increasing 1-D grid')
+        shape = tuple(len(ax) for ax in axes)
+        logpk = np.asarray(g['logpk0'], dtype=np.float64)
+        if logpk.shape[:-1] != shape:
+            raise InputError(f'pk_grid_file logpk0 shape {logpk.shape} does '
+                             f'not match the axis grids {shape} + (nk,)')
+        kg = np.asarray(g['k'], dtype=np.float64)
+        for key in ('sigma8_0', 'sigma8_z'):
+            if np.asarray(g[key]).shape != shape:
+                raise InputError(f'pk_grid_file {key} shape must match the '
+                                 f'axis grids {shape}')
+        return dict(
+            out, esm_grid_axes=tuple(axes),
+            esm_pk_grid=np.stack([IUS(kg, row, k=3)(esm_k) for row in
+                                  logpk.reshape(-1, logpk.shape[-1])]),
+            esm_s80_grid=np.asarray(g['sigma8_0'], dtype=np.float64).reshape(-1),
+            esm_s8z_grid=np.asarray(g['sigma8_z'], dtype=np.float64).reshape(-1)
+        ), False, names
+    if not use_eh and pk_table:
+        tbl = np.load(os.path.join(base_dir, pk_table))
+        return dict(out, esm_pk0=IUS(tbl['k'], tbl['pk0'], k=3)(esm_k),
+                    esm_s80=float(tbl['sigma8_0']),
+                    esm_s8z=float(tbl['sigma8_z'])), False, ()
+    if not use_eh:
+        logging.getLogger('victor_tpu_torch.io').warning(
+            'excursion_set requested CAMB but no pk_table_file given; falling '
+            'back to the Eisenstein-Hu approximation (mirrors reference '
+            'fallback, excursion_set_profile.py:63-70)')
+    return out, True, ()

@@ -3,12 +3,12 @@
 The port of `victor_tpu/likelihood/batched.py:29-135`. The likelihood core
 already carries a leading batch axis, so the batch is a tensor dimension in
 place of `jax.vmap`; `chunk` bounds peak memory, since one f64 (n_v, q)
-intermediate is 1.2 MB per parameter point at BOSS size. Both RSD models the
-theory layer ports (streaming, dispersion) run through it, in every perf mode.
+intermediate is 1.2 MB per parameter point at BOSS size. Every model and
+option of the theory layer runs through it, in every perf mode.
 
 Typical use::
 
-    bundle = build_tables(cfg['model'], cfg['data'], device='cuda')
+    bundle = build_tables(cfg['model'], cfg['data'])      # on the card
     batched = make_batched_loglike(
         bundle, ['fsigma8', 'beta', 'sigma_v', 'epsilon'], chunk=64)
     lnl, chi2 = batched(theta)           # theta: (N, 4) -> (N,), (N,)

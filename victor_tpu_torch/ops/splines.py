@@ -1,19 +1,21 @@
-"""Fixed-knot spline primitives: host builders (numpy) and device evaluation.
+"""Spline primitives: host builders (numpy) and device evaluation.
 
-The port of `victor_tpu/ops/splines.py:47-372`. As there, each spline is split
+The port of `victor_tpu/ops/splines.py:47-454`. As there, each spline is split
 into a host-side step, done once at table-build time, that probes scipy with
 unit basis vectors to extract a linear operator, and a device-side step that
 finds the interval and evaluates the local cubic. The host half is a copy of
 the JAX package's numpy code; the device half works on tensors with a leading
 batch axis.
 
-Piecewise-cubic evaluation (`ppoly_eval`) and the dispersion model's final
-stage (`dispersion_final`) run their hand-written CUDA kernels for CUDA
-tensors and their plain PyTorch versions for CPU tensors
-(`kernels/ppoly.py`, `kernels/dispersion.py`). Nothing moves a CUDA tensor
-to the CPU. The Chebyshev compressions (`chebyshev_fit`, `chebyshev_eval`)
-behind the gradient-free perf modes are plain PyTorch, as XLA fused them in
-the JAX package.
+Piecewise-cubic evaluation (`ppoly_eval`, and `ppoly_eval_multi` for up to
+four tables over one query set) and the dispersion model's final stage
+(`dispersion_final`) run their hand-written CUDA kernels for CUDA tensors
+and their plain PyTorch versions for CPU tensors (`kernels/ppoly.py`,
+`kernels/dispersion.py`). Nothing moves a CUDA tensor to the CPU. The
+Chebyshev compressions (`chebyshev_fit`, `chebyshev_eval`) behind the
+gradient-free perf modes and the dynamic-knot splines of the excursion-set
+model (`cubic_coeffs_dynamic`, `ppoly_eval_dynamic`) are plain PyTorch, as
+XLA fused them in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from ..kernels import dispersion as _dispersion
 from ..kernels.ppoly import ppoly_eval_cuda, ppoly_eval_plain
+from .special import ipow
 
 
 # ---------------------------------------------------------------------------
@@ -50,10 +53,11 @@ def cubic_deriv_operator(x: np.ndarray) -> np.ndarray:
 
 def hermite_coeffs(x, y, d):
     """Per-interval ascending-power cubic coefficients from values and
-    derivatives. Works on numpy arrays or torch tensors; y/d may have leading
-    batch axes over the trailing knot axis. Returns (..., n-1, 4)."""
+    derivatives. Works on numpy arrays or torch tensors; y/d (and x, for
+    per-row knots) may have leading batch axes over the trailing knot axis.
+    Returns (..., n-1, 4)."""
     stack = torch.stack if isinstance(y, torch.Tensor) else np.stack
-    h = x[1:] - x[:-1]
+    h = x[..., 1:] - x[..., :-1]
     dy = (y[..., 1:] - y[..., :-1]) / h
     c0 = y[..., :-1]
     c1 = d[..., :-1]
@@ -134,6 +138,26 @@ def ppoly_eval(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
     else:
         out = ppoly_eval_plain(x, c, q2, clamp)
     return out.reshape(q.shape)
+
+
+def ppoly_eval_multi(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
+                     clamp: bool = True) -> torch.Tensor:
+    """Evaluate K piecewise cubics that share the knots x at one set of
+    query points: one interval search per query serves every channel.
+
+    coeffs: (K, n-1, 4) shared by all rows, or (B, K, n-1, 4) per row
+    q:      (B, ...) with the batch axis leading
+    Returns (B, K, ...). Channel k equals `ppoly_eval(x, coeffs[..., k, :,
+    :], q)` bit for bit. CUDA tensors go to the CUDA kernel with K channels,
+    CPU tensors to the plain version.
+    """
+    c = (coeffs if coeffs.ndim == 4 else coeffs[None]).contiguous()
+    q2 = q.reshape(q.shape[0], -1).contiguous()
+    if q.is_cuda:
+        out = ppoly_eval_cuda(x, c, q2, clamp)
+    else:
+        out = ppoly_eval_plain(x, c, q2, clamp)
+    return out.reshape(q.shape[:1] + c.shape[1:2] + q.shape[1:])
 
 
 def dispersion_final(x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel):
@@ -244,6 +268,10 @@ class Spline1D:
     def eval(self, coeffs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         return ppoly_eval(self.x, coeffs, q, clamp=self.clamp)
 
+    def eval_multi(self, coeffs: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+        """K channels (B, K, n-1, 4) at q (B, ...) -> (B, K, ...)."""
+        return ppoly_eval_multi(self.x, coeffs, q, clamp=self.clamp)
+
     def __call__(self, y: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         return self.eval(self.coeffs(y), q)
 
@@ -320,3 +348,79 @@ class Bicubic2D:
                 ppoly_eval(self.y, self.cv[m], pc, clamp=False)
             out = term if out is None else out + term
         return out
+
+
+# ---------------------------------------------------------------------------
+# Dynamic-knot primitives (knots that change per call, e.g. ESM Eulerian radii)
+# ---------------------------------------------------------------------------
+
+def cubic_coeffs_dynamic(x, y):
+    """Not-a-knot cubic spline coefficients for knots given at run time
+    (victor_tpu/ops/splines.py:379-416).
+
+    x (..., n) knots, per row or shared; y (..., n) values. Solves the
+    not-a-knot first-derivative system (scipy's _cubic.py formulation) with
+    `torch.linalg.solve`, one (n, n) system per row of x, and returns
+    Hermite-form coefficients (..., n-1, 4). Matches
+    scipy.interpolate.CubicSpline(x, y, bc_type='not-a-knot') == IUS(k=3),
+    which the reference builds on the parameter-dependent Eulerian radius
+    grid every call (victor/excursion_set_profile.py:371,486). Plain
+    PyTorch: the systems are 50-200 knots, and the JAX package has no kernel
+    for them either.
+    """
+    n = x.shape[-1]
+    dx = x[..., 1:] - x[..., :-1]
+    slope = (y[..., 1:] - y[..., :-1]) / dx
+    A = x.new_zeros(x.shape[:-1] + (n, n))
+    b = y.new_zeros(y.shape)
+    # interior rows
+    i = torch.arange(1, n - 1, device=x.device)
+    A[..., i, i - 1] = dx[..., 1:]
+    A[..., i, i] = 2.0 * (dx[..., 1:] + dx[..., :-1])
+    A[..., i, i + 1] = dx[..., :-1]
+    b[..., 1:-1] = 3.0 * (dx[..., 1:] * slope[..., :-1]
+                          + dx[..., :-1] * slope[..., 1:])
+    # not-a-knot boundaries
+    d0 = x[..., 2] - x[..., 0]
+    dN = x[..., n - 1] - x[..., n - 3]
+    A[..., 0, 0] = dx[..., 1]
+    A[..., 0, 1] = d0
+    b[..., 0] = ((dx[..., 0] + 2.0 * d0) * dx[..., 1] * slope[..., 0]
+                 + ipow(dx[..., 0], 2) * slope[..., 1]) / d0
+    A[..., n - 1, n - 1] = dx[..., n - 3]
+    A[..., n - 1, n - 2] = dN
+    b[..., n - 1] = (ipow(dx[..., n - 2], 2) * slope[..., n - 3]
+                     + (2.0 * dN + dx[..., n - 2]) * dx[..., n - 3]
+                     * slope[..., n - 2]) / dN
+    d = torch.linalg.solve(A, b[..., None])[..., 0]
+    return hermite_coeffs(x, y, d)
+
+
+def ppoly_eval_dynamic(x, coeffs, q, clamp: bool = True):
+    """Piecewise-cubic evaluation with per-row knots: x (B, n), coeffs
+    (B, n-1, 4), q (B, m) -> (B, m). The interval semantics of `ppoly_eval`
+    (interval 0 reaches -inf, interval n-2 +inf) through a per-row
+    searchsorted and gathers, and its `+ (qq - qq)` NaN term; the JAX
+    package's masksum selects the same polynomial."""
+    n = x.shape[-1]
+    qq = torch.clamp(q, x[..., :1], x[..., -1:]) if clamp else q
+    idx = torch.clamp(torch.searchsorted(x.contiguous(), qq.contiguous(),
+                                         right=True) - 1, 0, n - 2)
+    t = qq - torch.gather(x, -1, idx)
+    c0, c1, c2, c3 = (torch.gather(coeffs[..., k], -1, idx) for k in range(4))
+    return ((c3 * t + c2) * t + c1) * t + c0 + (qq - qq)
+
+
+def gradient_nonuniform(y, x):
+    """np.gradient(y, x) for tensors: 2nd-order interior, 1st-order one-sided
+    edges (numpy's default edge_order=1). x (n,) or per row like y (..., n).
+    For the reference's np.gradient calls on parameter-dependent profiles
+    (victor/ccf_model.py:379,472; excursion_set_profile.py:411)."""
+    hd = x[..., 1:-1] - x[..., :-2]
+    hs = x[..., 2:] - x[..., 1:-1]
+    interior = (ipow(hd, 2) * y[..., 2:] + (ipow(hs, 2) - ipow(hd, 2))
+                * y[..., 1:-1] - ipow(hs, 2) * y[..., :-2]) / \
+        (hs * hd * (hd + hs))
+    left = (y[..., 1] - y[..., 0]) / (x[..., 1] - x[..., 0])
+    right = (y[..., -1] - y[..., -2]) / (x[..., -1] - x[..., -2])
+    return torch.cat([left[..., None], interior, right[..., None]], dim=-1)
