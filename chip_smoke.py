@@ -43,11 +43,30 @@ result line is printed):
    dispersion model, and the dispersion model's fused final stage against
    its exact one on 64 points of the prior box;
 10. time 4096 parameter points in every configuration above (for
-   information).
+   information);
+11. the gradient-free sampling path at full BOSS width, f64:
+   a. `python -m victor_tpu_torch eval` on configs/boss_sampling_config.yaml
+      in a subprocess at the golden point, and through the CLI's `main` at
+      the config's ref point, against victor_tpu's values (EVAL_GOLDENS);
+   b. the default sampler through the CLI's `run`: adaptive random-walk
+      Metropolis with its defaults (8 chains, 2000 warmup steps, rhat_stop
+      0.01, at most MH_N_SAMPLES draws) on configs/boss_config.yaml with the
+      params block QUAD_BLOCK, whose posterior must match the grid-quadrature
+      truth (QUAD_MEAN, QUAD_STD); the ppoly_eval kernel must carry the
+      sampler's likelihood, and the kernel is held against its plain
+      version on the inputs of one sampler step;
+   c. the ensemble sampler (differential evolution, 64 walkers);
+   d. a two-quantile joint fit (two copies of the BOSS data under the
+      block-diagonal stack of its covariance): its chi2 at the golden point
+      is twice the single dataset's, dense and factored; then a short MH
+      run on it and its evals/s;
+   e. MH steps/s in the default and in the exact perf modes, and the
+      kernels' device time per step under torch.profiler (information).
 
 The last two lines are a JSON summary of the kernels and the result line
 {"ok": true, "device": {...}}. `--profile PATH` also writes a
-torch.profiler summary of one batch of each timed configuration to PATH.
+torch.profiler summary of one batch of each timed configuration, and of 100
+MH steps in each perf mode, to PATH.
 """
 
 import argparse
@@ -142,6 +161,36 @@ ESM_REF = {'f': 0.78, 'sigma_8_0': 0.81, 'b10': -1.544, 'b01': -4.228,
            'epsilon': 1.0}
 ESM_GOLDENS = {'streaming': [85.02881334423897, 275.4473891792755],
                'dispersion': [84.35647845450578, 275.75759471303223]}
+# [chi2, lnL] of `python -m victor_tpu eval configs/boss_sampling_config.yaml`
+# on the CPU in f64, at GOLDEN (given as --param) and at the config's ref
+# point (no --param), recomputed and compared with these literals by
+# tests/test_torch_cli.py::test_chip_smoke_eval_goldens
+EVAL_GOLDENS = {'golden': [65.01177758054122, 284.76438934894736],
+                'ref': [83.81832922423543, 276.006027683185]}
+# The posterior that the grid quadrature of tools/validate_posterior.py
+# integrates, and its moments (tests/test_optimize.py:25-28): the
+# four-parameter block BLOCK_4P of tests/test_optimize.py:13-22 with the
+# sigma_v prior [100, 500] of configs/boss_sampling_config.yaml, where the
+# quadrature grid ends (BLOCK_4P's own sigma_v prior reaches 700, a wider
+# posterior than the one the moments describe). Every other axis of the grid
+# lies inside the block's priors, more than 3.5 sigma from each mean.
+# tests/test_torch_cli.py::test_chip_smoke_quadrature_block checks these
+# literals against both files and the tool's grid.
+QUAD_BLOCK = {
+    'fsigma8': {'prior': {'dist': 'uniform', 'min': 0.05, 'max': 1.5},
+                'ref': {'dist': 'norm', 'loc': 0.47, 'scale': 0.05}},
+    'beta': {'prior': {'dist': 'uniform', 'min': 0.2, 'max': 0.6},
+             'ref': {'dist': 'norm', 'loc': 0.4, 'scale': 0.03}},
+    'sigma_v': {'prior': {'dist': 'uniform', 'min': 100.0, 'max': 500.0},
+                'ref': {'dist': 'norm', 'loc': 380.0, 'scale': 30.0}},
+    'epsilon': {'prior': {'dist': 'uniform', 'min': 0.8, 'max': 1.2},
+                'ref': {'dist': 'norm', 'loc': 1.0, 'scale': 0.02}},
+}
+QUAD_MEAN = {'fsigma8': 0.573, 'beta': 0.3667, 'sigma_v': 418.0,
+             'epsilon': 1.0089}
+QUAD_STD = {'fsigma8': 0.054, 'beta': 0.011, 'sigma_v': 44.0,
+            'epsilon': 0.011}
+MH_N_SAMPLES = 8000           # the CLI's draw cap (the default)
 
 
 def check(ok, what):
@@ -680,6 +729,283 @@ def throughput(configs, card, profile_path):
         print(f'profile tables written to {profile_path}', flush=True)
 
 
+def write_yaml(cfg, path):
+    import yaml
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def cli_json(argv):
+    """The JSON that the port's CLI prints for `argv`, run in this process
+    (so the kernels' launch counters see it)."""
+    import contextlib
+    import io
+    from victor_tpu_torch.__main__ import main as cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli(argv)
+    return json.loads(buf.getvalue())
+
+
+def eval_cli(tmp):
+    """Phase 11a: `python -m victor_tpu_torch eval` in a subprocess at the
+    golden point, and the CLI's main at the config's ref point, against
+    victor_tpu's values within 1e-8."""
+    path = write_yaml(load_config('boss_sampling_config.yaml'),
+                      os.path.join(tmp, 'boss_sampling.yaml'))
+    args = [a for k, v in zip(NAMES, GOLDEN) for a in ('--param', f'{k}={v}')]
+    env = {**os.environ, 'PYTHONPATH': os.pathsep.join(
+        [REPO] + ([os.environ['PYTHONPATH']] if 'PYTHONPATH' in os.environ
+                  else []))}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', 'victor_tpu_torch', 'eval',
+                           path] + args, cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError('chip_smoke: `python -m victor_tpu_torch eval` '
+                           f'exited {proc.returncode}:\n{proc.stderr[-4000:]}')
+    print(f'  eval subprocess: {time.perf_counter() - t0:.2f} s', flush=True)
+    results = {'golden': json.loads(proc.stdout.strip().splitlines()[-1]),
+               'ref': cli_json(['eval', path])}
+    for name, res in results.items():
+        want_chi, want_lnl = EVAL_GOLDENS[name]
+        check(abs(res['chi2'] - want_chi) < 1e-8 and
+              abs(res['log_likelihood'] - want_lnl) < 1e-8,
+              f"eval at the {name} point {res['params']}: chi2 "
+              f"{res['chi2']:.10f} ({want_chi:.10f}), lnL "
+              f"{res['log_likelihood']:.10f} ({want_lnl:.10f}) (< 1e-8)")
+    g = results['golden']
+    check(abs(g['chi2'] - GOLDEN_CHI2) < 0.01 and
+          abs(g['log_likelihood'] - GOLDEN_LNL) < 0.01,
+          f"eval golden chi2 {g['chi2']:.6f} (65.01), lnL "
+          f"{g['log_likelihood']:.6f} (284.76)")
+
+
+def mh_posterior(cfg, tmp):
+    """Phase 11b: `run` with the default sampler on QUAD_BLOCK through the
+    CLI. Returns (ppoly_eval launches, sampler steps, final chain points
+    (8, 4))."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import dispersion, ppoly
+    from victor_tpu_torch.sampling.diagnostics import split_rhat
+
+    run_cfg = {**cfg, 'params': QUAD_BLOCK,
+               'sampler': {'kind': 'mh', 'n_chains': 8, 'rhat_stop': 0.01}}
+    path = write_yaml(run_cfg, os.path.join(tmp, 'boss_mh.yaml'))
+    root = os.path.join(tmp, 'chains', 'mh')
+    ppoly.LAUNCHES = ppoly.LAUNCHES_MULTI = dispersion.LAUNCHES = 0
+    out = cli_json(['run', path, '--samples', str(MH_N_SAMPLES),
+                    '--output', root])
+    torch.cuda.synchronize()
+    launches = (ppoly.LAUNCHES, dispersion.LAUNCHES)
+    n_draws, n_warmup = out['n_samples'], 2000
+    steps = n_warmup + n_draws
+    files = [f'{root}.{i}.txt' for i in range(1, 9)] + [
+        f'{root}.{ext}' for ext in ('paramnames', 'ranges', 'covmat',
+                                    'progress', 'input.yaml')]
+    check(all(os.path.isfile(f) for f in files),
+          'MH wrote the GetDist chains (one per chain), .paramnames, '
+          '.ranges, .covmat, .progress and .input.yaml')
+    chains = np.stack([np.loadtxt(f'{root}.{i}.txt', ndmin=2)[:, 2:6]
+                       for i in range(1, 9)], axis=1)        # (S, 8, 4)
+    check(chains.shape == (n_draws, 8, 4) and np.isfinite(chains).all(),
+          f'MH chains: {chains.shape}, finite')
+    rm1 = float(np.max(split_rhat(chains) - 1))
+    rate = steps / out['elapsed_s']
+    print(f'  MH (default modes, 8 chains): {n_draws} draws after '
+          f'{n_warmup} warmup steps, max R-1 {rm1:.4f} (stop at 0.01, '
+          f"{'converged' if rm1 < 0.01 else 'cap reached'}), acceptance "
+          f"{out['acceptance']}, {out['elapsed_s']} s, {rate:.1f} steps/s, "
+          f'ppoly_eval launches {launches[0]} ({launches[0] / (steps + 1):.2f}'
+          ' per likelihood call)', flush=True)
+    for name in NAMES:
+        got = out['summary'][name]
+        mean, std = QUAD_MEAN[name], QUAD_STD[name]
+        check(abs(got['mean'] - mean) < 0.2 * std and
+              abs(got['std'] / std - 1.0) < 0.15,
+              f"MH posterior {name}: mean {got['mean']:.5g} ({mean:g} +- "
+              f"0.2 x {std:g}), std {got['std']:.4g} ({std:g} +- 15%)")
+    check(launches[0] > 0 and launches[1] == 0,
+          f'ppoly_eval kernel launches on the MH path: {launches[0]} (> 0); '
+          f'dispersion_final {launches[1]} (streaming model: 0)')
+    return launches[0], steps, chains[-1]
+
+
+def sampler_kernel_case(bundle, theta):
+    """The largest ppoly_eval call of one likelihood evaluation of the MH
+    step (default modes, 8 chains) against the plain version on the same
+    inputs. Returns (max_abs_err, kernel ms, plain ms, bytes,
+    operations)."""
+    import torch
+    from victor_tpu_torch.kernels.ppoly import (ppoly_eval_cuda,
+                                                ppoly_eval_plain)
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+    from victor_tpu_torch.ops import splines
+
+    calls = []
+
+    def record(*args):
+        calls.append(args)
+        return ppoly_eval_cuda(*args)
+
+    splines.ppoly_eval_cuda = record
+    try:
+        make_batched_loglike(bundle, NAMES)(theta)
+    finally:
+        splines.ppoly_eval_cuda = ppoly_eval_cuda
+    x, coeffs, q, clamp = max(calls, key=lambda c: c[2].numel())
+    out_k = ppoly_eval_cuda(x, coeffs, q, clamp)
+    out_p = ppoly_eval_plain(x, coeffs, q, clamp)
+    torch.cuda.synchronize()
+    label = (f'ppoly_eval in the MH step: {len(calls)} calls, the largest '
+             f'coeffs={tuple(coeffs.shape)} q={tuple(q.shape)} clamp={clamp}')
+    err = compare_outputs(label, out_k, out_p, q.dtype)
+    ms_k, ms_p = time_in_turns(label,
+                               lambda: ppoly_eval_cuda(x, coeffs, q, clamp),
+                               lambda: ppoly_eval_plain(x, coeffs, q, clamp))
+    K = coeffs.shape[1] if coeffs.ndim == 4 else 1
+    return (err, ms_k, ms_p, nbytes(x, coeffs, q, out_k),
+            q.numel() * ppoly_ops(x.shape[0], K))
+
+
+def ensemble_run(bundle):
+    """Phase 11c: the differential-evolution ensemble, 64 walkers, 300
+    sweeps, on QUAD_BLOCK."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.sampling import run_mcmc
+
+    ppoly.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = run_mcmc(bundle, QUAD_BLOCK, n_walkers=64, max_steps=300,
+                   check_every=100, rhat_stop=0.0, move='de', seed=1,
+                   device='cuda')
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = ppoly.LAUNCHES
+    check(res.chain.shape == (300, 64, 4) and
+          bool(np.isfinite(res.chain).all() and
+               np.isfinite(res.log_prob).all()),
+          f'ensemble (DE, 64 walkers): chain {res.chain.shape}, finite')
+    check(0.05 < res.acceptance < 0.9,
+          f'ensemble acceptance {res.acceptance:.3f} in (0.05, 0.9)')
+    check(launches > 0, f'ppoly_eval kernel launches on the ensemble path: '
+                        f'{launches}')
+    moments = {k: (round(v['mean'], 5), round(v['std'], 5),
+                   round(v['rhat'], 4))
+               for k, v in res.summary().items()}
+    print(f'  ensemble: {300 / dt:.2f} sweeps/s ({2 * 300} likelihood calls '
+          f'of 32 points, {64 * 300 / dt:.1f} evals/s), {dt:.2f} s; '
+          f'(mean, std, R-hat) after a third burn-in: {moments}', flush=True)
+
+
+def joint_fit(cfg, bundle, tmp):
+    """Phase 11d: two copies of the BOSS data under the block-diagonal stack
+    of its 31 x 60 x 60 covariance."""
+    import copy
+
+    import numpy as np
+    import torch
+    from victor_tpu_torch.io.loaders import load_key_value_file
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+    from victor_tpu_torch.likelihood.multiquantile import (
+        build_joint_tables, make_batched_joint_loglike)
+    from victor_tpu_torch.sampling import run_hmc_mcmc
+
+    data = cfg['data']
+    cd = load_key_value_file(os.path.join(
+        data['dir'], data['covariance_matrix']['data_file']))
+    covs = np.asarray(cd['covmat'])
+    n_b, D = covs.shape[:2]
+    stack = np.zeros((n_b, 2 * D, 2 * D))
+    stack[:, :D, :D] = stack[:, D:, D:] = covs
+    cov_path = os.path.join(tmp, 'joint_cov.npz')
+    np.savez(cov_path, covmat=stack, beta=np.asarray(cd['beta']))
+    q = {'model': copy.deepcopy(cfg['model']),
+         'data': {'redshift_space_ccf':
+                  copy.deepcopy(data['redshift_space_ccf']),
+                  'dir': data['dir']}}
+    jb = build_joint_tables({
+        'quantiles': [q, copy.deepcopy(q)],
+        'covariance_matrix': {'data_file': cov_path, 'cov_key': 'covmat',
+                              'fixed_beta': False, 'beta_key': 'beta'},
+        'likelihood': copy.deepcopy(data['likelihood'])}, device='cuda')
+    single = float(make_batched_loglike(bundle, NAMES, opts_kw=EXACT)(
+        [GOLDEN])[1][0])
+    for label, kw in (('dense', EXACT),
+                      ('factored', {**EXACT, 'beta_covariance': 'factored'})):
+        chi = float(make_batched_joint_loglike(jb, NAMES, opts_kw=kw)(
+            [GOLDEN])[1][0])
+        rel = abs(chi - 2 * single) / (2 * single)
+        check(rel <= 1e-9 and abs(chi - 2 * 65.0118) < 1e-3,
+              f'joint chi2 ({label}) at the golden point {chi:.10f} = 2 x '
+              f'{single:.10f} to {rel:.2e} relative (<= 1e-9)')
+    theta = draw_theta(1024, 3, 'cuda')
+    loglike = make_batched_joint_loglike(jb, NAMES, chunk=CHUNK)
+    loglike(theta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lnl, _ = loglike(theta)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f'  joint fit (2 quantiles, default modes): {1024 / dt:.1f} evals/s '
+          f'(1024 points, chunk {CHUNK}, {int(torch.isfinite(lnl).sum())} '
+          'finite)', flush=True)
+    ppoly.LAUNCHES = 0
+    res = run_hmc_mcmc(jb, QUAD_BLOCK, n_chains=8, n_warmup=100,
+                       n_samples=100, segment_steps=200, algorithm='mh',
+                       seed=4, device='cuda')
+    torch.cuda.synchronize()
+    check(res.chain.shape == (100, 8, 4) and
+          bool(np.isfinite(res.log_prob).all()) and ppoly.LAUNCHES > 0,
+          f'MH on the joint fit: chain {res.chain.shape}, finite, acceptance '
+          f'{res.acceptance:.3f}, {200 / res.elapsed_s:.1f} steps/s, '
+          f'ppoly_eval launches {ppoly.LAUNCHES}')
+
+
+def mh_step_rates(bundle, card, profile_path):
+    """Phase 11e (information): MH steps/s of 8 chains on QUAD_BLOCK, 300
+    steps (100 of warmup), in the default modes and the exact ones; then
+    the device time per step of 100 more steps under torch.profiler (the
+    kernels' own time, against the step's wall time), whose table goes to
+    `profile_path` when one is given."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from victor_tpu_torch.sampling import run_hmc_mcmc
+
+    def run(kw, n_warmup, n_samples):
+        return run_hmc_mcmc(bundle, QUAD_BLOCK, n_chains=8,
+                            n_warmup=n_warmup, n_samples=n_samples,
+                            segment_steps=300, opts_kw=kw, algorithm='mh',
+                            seed=2, device='cuda')
+
+    for label, kw in (('default', None), ('exact', EXACT)):
+        res = run(kw, 100, 200)
+        print(f'MH steps/s ({label} modes, 8 chains, 300 steps): '
+              f'{300 / res.elapsed_s:.1f} on {card}', flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res = run(kw, 50, 50)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # kernels only: an operator's own device time is its kernels'
+        device_us = sum(e.device_time_total for e in events
+                        if e.device_type == DeviceType.CUDA)
+        print(f'  MH {label} modes, 100 steps under torch.profiler: kernels '
+              f'{device_us / 1e3 / 100:.3f} ms per step of '
+              f'{res.elapsed_s * 1e3 / 100:.3f} ms wall', flush=True)
+        if profile_path:
+            with open(profile_path, 'a') as f:
+                f.write(f'\n== MH, {label} modes: 100 steps of 8 chains, '
+                        'f64\n' + events.table(sort_by='cuda_time_total',
+                                               row_limit=30) + '\n')
+
+
 def kernel_row(name, source, replaces, launches, result, dtype):
     """One entry of the kernels summary line from a comparison's (max_abs_err,
     kernel ms, plain ms, bytes, operations). No single PyTorch call computes
@@ -697,7 +1023,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', metavar='PATH',
                         help='write a torch.profiler summary of one batch of '
-                             'each timed configuration to PATH')
+                             'each timed configuration and of 100 MH steps '
+                             'to PATH')
     args = parser.parse_args()
 
     import dataclasses
@@ -830,6 +1157,23 @@ def main() -> int:
 
     print(f'ESM streaming path launches (ppoly_eval, of them multi-channel): '
           f'{esm_launches}', flush=True)
+
+    # ---- 11. the gradient-free sampling path ----
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        print('sampling: eval through the CLI', flush=True)
+        eval_cli(tmp)
+        print('sampling: MH through the CLI run', flush=True)
+        t0 = time.perf_counter()
+        mh_launches, mh_steps, last = mh_posterior(cfg, tmp)
+        print(f'  MH phase: {time.perf_counter() - t0:.2f} s', flush=True)
+        mh_result = sampler_kernel_case(bundle, last)
+        print('sampling: ensemble', flush=True)
+        ensemble_run(bundle)
+        print('sampling: joint fit', flush=True)
+        joint_fit(cfg, bundle, tmp)
+    mh_step_rates(bundle, card, args.profile)
+
     f64 = torch.float64
     print(f'card: {card}', flush=True)
     print(json.dumps({'kernels': [
@@ -842,7 +1186,11 @@ def main() -> int:
                    results[('float64', 'multi', 2, False)], f64),
         kernel_row('dispersion_final', 'dispersion_final.cu',
                    'victor_tpu/ops/dispersion_pallas.py:32', disp_launches,
-                   disp_results['float64'], f64)]}), flush=True)
+                   disp_results['float64'], f64),
+        kernel_row(f'ppoly_eval, MH sampler ({mh_steps} steps of 8 chains, '
+                   'default modes)', 'ppoly_eval.cu',
+                   'victor_tpu/ops/splines.py:537', mh_launches, mh_result,
+                   f64)]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -63,6 +63,24 @@ def make_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
     return fn
 
 
+def chunked(run, chunk: Optional[int]):
+    """`run(theta) -> tuple of (N,) tensors`, evaluated in chunks of `chunk`
+    rows when the batch is larger; the last chunk is padded with copies of
+    the first point and the pad rows are discarded, so every chunk has the
+    same shape. None evaluates the whole batch at once."""
+    def fn(theta):
+        n = theta.shape[0]
+        if not chunk or n <= chunk:
+            return run(theta)
+        n_chunks = -(-n // chunk)
+        pad = n_chunks * chunk - n
+        if pad:
+            theta = torch.cat([theta, theta[:1].expand(pad, -1)])
+        outs = [run(theta[i * chunk:(i + 1) * chunk]) for i in range(n_chunks)]
+        return tuple(torch.cat(o)[:n] for o in zip(*outs))
+    return fn
+
+
 def make_batched_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
                          base_params: Optional[Dict] = None,
                          opts_kw: Optional[Dict] = None,
@@ -71,10 +89,8 @@ def make_batched_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
                          gradient_free: bool = True):
     """Batched log-likelihood: theta (N, P) -> ((N,), (N,)).
 
-    `chunk` evaluates batches larger than `chunk` in chunks of that size;
-    the last chunk is padded with copies of the first point and the pad
-    rows are discarded, so every chunk has the same shape. None evaluates
-    the whole batch at once.
+    `chunk` evaluates batches larger than `chunk` in chunks of that size
+    (`chunked`). None evaluates the whole batch at once.
 
     'auto' perf modes resolve as in victor_tpu (config.resolve_perf_mode):
     on the default gradient-free path to streaming_eval='fast',
@@ -90,16 +106,5 @@ def make_batched_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
         return log_likelihood(bundle.tables, bundle.spec, opts, fit,
                               theta_to_params(th, names, base_params))
 
-    def fn(theta):
-        theta = _as_theta(bundle, theta)
-        n = theta.shape[0]
-        if not chunk or n <= chunk:
-            return run(theta)
-        n_chunks = -(-n // chunk)
-        pad = n_chunks * chunk - n
-        if pad:
-            theta = torch.cat([theta, theta[:1].expand(pad, -1)])
-        outs = [run(theta[i * chunk:(i + 1) * chunk]) for i in range(n_chunks)]
-        return tuple(torch.cat(o)[:n] for o in zip(*outs))
-
-    return fn
+    fn = chunked(run, chunk)
+    return lambda theta: fn(_as_theta(bundle, theta))

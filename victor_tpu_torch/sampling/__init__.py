@@ -1,0 +1,23 @@
+from .priors import ParamSpace, SampledParam, DerivedParam
+from .ensemble import EnsembleState, init_state, step, run, make_logpost
+from .runner import run_mcmc, run_hmc_mcmc, make_posterior, MCMCResult
+from .targets import ProductTarget
+from . import hmc
+from . import mh
+from .chains import (save_checkpoint, load_checkpoint, export_getdist,
+                     read_getdist, read_covmat, save_hmc_checkpoint,
+                     load_hmc_checkpoint)
+from .diagnostics import (split_rhat, effective_sample_size, autocorr_time,
+                          acceptance_fraction)
+
+__all__ = [
+    'ParamSpace', 'SampledParam', 'DerivedParam',
+    'EnsembleState', 'init_state', 'step', 'run', 'make_logpost',
+    'run_mcmc', 'run_hmc_mcmc', 'make_posterior', 'MCMCResult', 'hmc', 'mh',
+    'ProductTarget',
+    'save_checkpoint', 'load_checkpoint', 'export_getdist',
+    'read_getdist', 'read_covmat', 'save_hmc_checkpoint',
+    'load_hmc_checkpoint',
+    'split_rhat', 'effective_sample_size', 'autocorr_time',
+    'acceptance_fraction',
+]
