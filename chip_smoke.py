@@ -15,7 +15,12 @@ result line is printed):
    out-of-range, on-knot, NaN and infinite values; then its multi-channel
    form (K = 2 and 3 tables of 30 knots over one query set, per-point and
    shared tables), including channel k against the single-channel kernel on
-   table k, bit for bit; time both versions with CUDA events;
+   table k, bit for bit; time both versions on the device alone
+   (`device_ms`) and the wrapper's host microseconds per call (`host_us`);
+   3b. the same comparison at the launch plan's edge shapes (EDGE_CASES: a q
+   at a storage offset of one element, odd M, M = 1, M under the vector
+   width, one shared table over 9.6M queries, rows shorter than a tile,
+   n = 2 and n = 1024, K = 1..4), NaN and inf positions identical;
 4. hold the dispersion_final kernel against its plain version on the final
    stage's inputs from the port's own dispersion model (64 parameter points,
    50 x 3000 points each) with NaN, out-of-range and near-knot entries
@@ -52,9 +57,11 @@ result line is printed):
       Metropolis with its defaults (8 chains, 2000 warmup steps, rhat_stop
       0.01, at most MH_N_SAMPLES draws) on configs/boss_config.yaml with the
       params block QUAD_BLOCK, whose posterior must match the grid-quadrature
-      truth (QUAD_MEAN, QUAD_STD); the ppoly_eval kernel must carry the
-      sampler's likelihood, and the kernel is held against its plain
-      version on the inputs of one sampler step;
+      truth (QUAD_MEAN, QUAD_STD) and whose draws and R-1 must equal those
+      of the ppoly_eval design before its redesign (MH_BEFORE);
+      the ppoly_eval kernel must carry the sampler's likelihood, and it is
+      held against its plain version on the inputs of each lookup of one
+      sampler step, the largest timed with L2 cold and warm;
    c. the ensemble sampler (differential evolution, 64 walkers);
    d. a two-quantile joint fit (two copies of the BOSS data under the
       block-diagonal stack of its covariance): its chi2 at the golden point
@@ -63,8 +70,10 @@ result line is printed):
    e. MH steps/s in the default and in the exact perf modes, and the
       kernels' device time per step under torch.profiler (information).
 
-The last two lines are a JSON summary of the kernels and the result line
-{"ok": true, "device": {...}}. `--profile PATH` also writes a
+The last two lines are a JSON summary of the kernels (device-only `ms`,
+`host_us`; the sampler row's `ms` is its L2-cold reading, beside `warm_ms`)
+and the result line {"ok": true, "device": {...}}. `--profile PATH` also
+writes a
 torch.profiler summary of one batch of each timed configuration, and of 100
 MH steps in each perf mode, to PATH.
 """
@@ -103,6 +112,11 @@ N_POINTS = 150_000            # n_v * n_mu * n_s at BOSS size
 TOL = {'float64': 1e-12, 'float32': 1e-5}
 KERNELS = ('ppoly_eval', 'dispersion_final')
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
+L2_BYTES = 50e6               # H100 SXM L2 cache
+SLEEP_CYCLES = 40_000_000     # ~20 ms of device sleep ahead of timed calls
+# a plain version launches tens of kernels per call: few enough calls that
+# they all fit the launch queue while the device sleeps
+PLAIN_REPS = 10
 FP64_FLOPS = 34e12            # H100 SXM f64 outside the tensor cores
 FP32_FLOPS = 67e12            # H100 SXM f32 outside the tensor cores
 
@@ -191,6 +205,12 @@ QUAD_MEAN = {'fsigma8': 0.573, 'beta': 0.3667, 'sigma_v': 418.0,
 QUAD_STD = {'fsigma8': 0.054, 'beta': 0.011, 'sigma_v': 44.0,
             'epsilon': 0.011}
 MH_N_SAMPLES = 8000           # the CLI's draw cap (the default)
+# The default MH run of phase 11b before the ppoly_eval redesign (the kernel
+# and wrapper of commit 8d0baf7 on an NVIDIA H100 80GB HBM3): draws and max
+# R-1 to four places. The redesign keeps each query's arithmetic, so the run
+# must repeat. Whether the chains repeat byte for byte is an A/B of two
+# checkouts on one software stack: tools/ppoly_timing.py --mh.
+MH_BEFORE = (5500, 0.0096)
 
 
 def check(ok, what):
@@ -237,29 +257,67 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=20):
-    """Mean milliseconds per call over `reps` calls, timed with CUDA events
-    after two warm-up calls."""
+def device_ms(fn, reps=50):
+    """Mean device milliseconds per call of `fn` over `reps` calls, with the
+    host kept out of the reading: the stream first sleeps long enough for the
+    host to queue every call, so the events around the calls time the card
+    running them back to back, not the host issuing them. The start event
+    must still be pending once all calls are queued; if it is not, the sleep
+    is lengthened and the reading taken again. `reps` calls' launches must
+    fit the launch queue (about a thousand), or the host waits for the
+    sleeping device."""
     import torch
-    for _ in range(2):
+    for _ in range(3):
         fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    cycles = SLEEP_CYCLES
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        queued_ahead = not start.query()
+        torch.cuda.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise RuntimeError('chip_smoke: the host could not queue the timed calls '
+                       'within the device sleep')
+
+
+def host_us(fn, calls=1000, chunk=100):
+    """Host microseconds per call of `fn` (time.perf_counter over `calls`
+    calls), each chunk of calls queued behind a device sleep so that a full
+    launch queue never makes the host wait for the card."""
+    import torch
+    for _ in range(3):
         fn()
-    end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    total = 0.0
+    for _ in range(calls // chunk):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            fn()
+        total += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return 1e6 * total / (calls // chunk * chunk)
 
 
 def time_in_turns(label, kernel, plain):
-    """CUDA-event milliseconds per call of a kernel and its plain version,
-    timed in turns (kernel, plain, plain, kernel) so drift hits both alike."""
-    k1, p1, p2, k2 = cuda_ms(kernel), cuda_ms(plain), cuda_ms(plain), cuda_ms(kernel)
+    """Device-only milliseconds per call of a kernel and its plain version,
+    timed in turns (kernel, plain, plain, kernel) so drift hits both alike,
+    and the kernel wrapper's host microseconds per call."""
+    k1, p1, p2, k2 = (device_ms(kernel), device_ms(plain, PLAIN_REPS),
+                      device_ms(plain, PLAIN_REPS), device_ms(kernel))
     ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f'  {label}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms', flush=True)
-    return ms_k, ms_p
+    us = host_us(kernel)
+    print(f'  {label}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms (device '
+          f'only); host {us:.2f} us per kernel call', flush=True)
+    return ms_k, ms_p, us
 
 
 def planted_queries(x, x_np, B, M, dtype, gen):
@@ -317,9 +375,18 @@ def compare_outputs(label, out_k, out_p, dtype):
     return err
 
 
+def timed(label, err, kernel, plain, n_bytes, ops):
+    """A comparison's result: the max abs error, the kernel's and the plain
+    version's device-only ms, the kernel wrapper's host us per call, and the
+    bytes and operations of one call (for its bound)."""
+    ms, plain_ms, us = time_in_turns(label, kernel, plain)
+    return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
+            'host_us': us, 'bytes': n_bytes, 'ops': ops}
+
+
 def compare_case(n, batch_coeffs, dtype, clamp, gen):
     """One kernel-vs-plain comparison at (64, 150000) queries; returns
-    (max_abs_err, kernel ms, plain ms, bytes, operations)."""
+    `timed`'s result."""
     import numpy as np
     import torch
     from victor_tpu_torch.kernels.ppoly import ppoly_eval_cuda, ppoly_eval_plain
@@ -343,10 +410,9 @@ def compare_case(n, batch_coeffs, dtype, clamp, gen):
     label = (f'n={n} coeffs=({rows},{n - 1},4) q={tuple(q.shape)} '
              f'{str(dtype)[6:]} clamp={clamp}')
     err = compare_outputs(label, out_k, out_p, dtype)
-    ms_k, ms_p = time_in_turns(label, lambda: ppoly_eval_cuda(x, coeffs, q, clamp),
-                               lambda: ppoly_eval_plain(x, coeffs, q, clamp))
-    return (err, ms_k, ms_p, nbytes(x, coeffs, q, out_k),
-            q.numel() * ppoly_ops(n, 1))
+    return timed(label, err, lambda: ppoly_eval_cuda(x, coeffs, q, clamp),
+                 lambda: ppoly_eval_plain(x, coeffs, q, clamp),
+                 nbytes(x, coeffs, q, out_k), q.numel() * ppoly_ops(n, 1))
 
 
 def compare_multi(K, shared, dtype, gen):
@@ -354,8 +420,7 @@ def compare_multi(K, shared, dtype, gen):
     real-space shape: K tables of 30 knots (one per multipole), per point
     or shared, over (64, 150000) queries with clamp. Channel k must equal
     the single-channel kernel on table k bit for bit, and a 1-channel call
-    the single-channel path. Returns (max_abs_err, kernel ms, plain ms,
-    bytes, operations)."""
+    the single-channel path. Returns `timed`'s result."""
     import numpy as np
     import torch
     from victor_tpu_torch.kernels.ppoly import ppoly_eval_cuda, ppoly_eval_plain
@@ -385,10 +450,111 @@ def compare_multi(K, shared, dtype, gen):
     check(same and same_one, f'{label}: each channel equals the '
                              'single-channel kernel on its table bit for bit, '
                              'and a 1-channel call the single-channel path')
-    ms_k, ms_p = time_in_turns(label, lambda: ppoly_eval_cuda(x, coeffs, q),
-                               lambda: ppoly_eval_plain(x, coeffs, q))
-    return (err, ms_k, ms_p, nbytes(x, coeffs, q, out_k),
-            q.numel() * ppoly_ops(n, K))
+    return timed(label, err, lambda: ppoly_eval_cuda(x, coeffs, q),
+                 lambda: ppoly_eval_plain(x, coeffs, q),
+                 nbytes(x, coeffs, q, out_k), q.numel() * ppoly_ops(n, K))
+
+
+# Phase 3b: (label, B, M, knots, channels, shared table, clamp, storage
+# offset of q in elements), each in f64 and f32
+EDGE_CASES = [
+    ('q at a storage offset of one element', 16, 3000, 31, 1, False, True, 1),
+    ('odd M', 16, 3001, 31, 1, False, True, 0),
+    ('odd M, 2 channels', 16, 3001, 31, 2, False, True, 0),
+    ('M = 1', 16, 1, 31, 1, False, True, 0),
+    ('M = 3, under the vector width', 16, 3, 31, 1, False, False, 0),
+    ('B = 1, one table, 9.6M queries', 1, 9_600_000, 25, 1, True, False, 0),
+    ('M = 49, B = 8 (Chebyshev nodes)', 8, 49, 31, 1, False, True, 0),
+    ('M = 49, B = 8, 2 channels', 8, 49, 31, 2, False, True, 0),
+    ('M = 64, a short row on the vector path', 16, 64, 31, 1, False, True,
+     0),
+    ('M = 65, a short odd row, one table', 16, 65, 31, 2, True, True, 0),
+    ('M = 392, one table', 1, 392, 25, 1, True, False, 0),
+    ('n = 2', 16, 3000, 2, 1, False, False, 0),
+    ('n = 1024', 16, 3000, 1024, 1, False, True, 0),
+    ('K = 1', 16, 3000, 30, 1, False, True, 0),
+    ('K = 2', 16, 3000, 30, 2, False, True, 0),
+    ('K = 3', 16, 3000, 30, 3, True, True, 0),
+    ('K = 4', 16, 3000, 30, 4, False, True, 0),
+    ('K = 4 at an offset', 16, 3000, 30, 4, False, False, 1),
+]
+
+
+def edge_case(label, B, M, n, K, shared, clamp, offset, dtype, gen):
+    """One of EDGE_CASES: the kernel against its plain version, NaN and inf
+    positions identical, on queries from 10% of the span beyond both ends
+    with every knot, NaN, +inf and -inf planted at the front and NaN and
+    infinities at the end; each channel against the 1-channel kernel on its
+    table, and the offset q against an aligned copy, bit for bit."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels.ppoly import (ppoly_eval_cuda,
+                                                ppoly_eval_plain)
+
+    rng = np.random.default_rng(B * 7 + M + n + K)
+    x_np = np.concatenate([[0.01], np.sort(rng.uniform(2.0, 120.0, n - 1))])
+    h = np.diff(x_np)[:, None] ** -np.arange(4.0)      # c_j scaled by h^-j
+    c = rng.standard_normal((1 if shared else B, K, n - 1, 4)) * h
+    coeffs = torch.as_tensor(c if K > 1 else c[:, 0], device='cuda',
+                             dtype=dtype).contiguous()
+    x = torch.as_tensor(x_np, device='cuda', dtype=dtype)
+    span = float(x_np[-1] - x_np[0])
+    base = torch.rand(B * M + offset, generator=gen, device='cuda',
+                      dtype=torch.float64)
+    base = (x_np[0] - 0.1 * span + 1.2 * span * base).to(dtype)
+    q = base[offset:].view(B, M)
+    special = torch.cat([x, x.new_tensor([float('nan'), float('inf'),
+                                          float('-inf')])])
+    flat = q.view(-1)
+    flat[:min(len(special), flat.numel())] = special[:flat.numel()]
+    if flat.numel() > 2 * len(special):
+        flat[-3:] = special[-3:]
+    label = (f'edge: {label}: q={tuple(q.shape)} (offset {offset}) '
+             f'coeffs={tuple(coeffs.shape)} {str(dtype)[6:]} clamp={clamp}')
+    out_k = ppoly_eval_cuda(x, coeffs, q, clamp)
+    out_p = ppoly_eval_plain(x, coeffs, q, clamp)
+    torch.cuda.synchronize()
+    compare_outputs(label, out_k, out_p, dtype)
+    same = True
+    if K > 1:
+        same = all(torch.equal(torch.nan_to_num(out_k[:, k]), torch.nan_to_num(
+            ppoly_eval_cuda(x, coeffs[:, k].contiguous(), q, clamp)))
+            for k in range(K))
+    if offset:
+        same = same and torch.equal(torch.nan_to_num(out_k), torch.nan_to_num(
+            ppoly_eval_cuda(x, coeffs, q.clone(), clamp)))
+    torch.cuda.synchronize()
+    check(same, f'{label}: channels equal the 1-channel kernel and the offset '
+                'q an aligned copy, bit for bit')
+
+
+def ppoly_phase(gen):
+    """Phases 3 and 3b: the ppoly_eval kernel against its plain version at
+    the main path's shapes, f64 and f32 (`compare_case`, `compare_multi`),
+    then at EDGE_CASES. Returns the timed results by (dtype, n, per-row
+    tables, clamp) and (dtype, 'multi', K, shared table)."""
+    import torch
+
+    print('compare ppoly_eval kernel vs plain:', flush=True)
+    results = {}
+    for dtype in (torch.float64, torch.float32):
+        # v_r (31 knots) and xi_0 (30) have per-point coefficients; sigma_v
+        # (25 knots, clamp off after Bicubic2D's own clamp) has one table
+        for n, batched, clamp in ((31, True, True), (31, True, False),
+                                  (30, True, True), (25, False, False)):
+            results[(str(dtype)[6:], n, batched, clamp)] = compare_case(
+                n, batched, dtype, clamp, gen)
+    # the real-space multipoles (K = 2 for the BOSS model, 3 with the
+    # hexadecapole), per point; shared tables as a model with fixed input
+    for dtype in (torch.float64, torch.float32):
+        for K, shared in ((2, False), (3, False), (2, True), (3, True)):
+            results[(str(dtype)[6:], 'multi', K, shared)] = compare_multi(
+                K, shared, dtype, gen)
+    print('ppoly_eval kernel vs plain at the edge shapes:', flush=True)
+    for case in EDGE_CASES:
+        for dtype in (torch.float64, torch.float32):
+            edge_case(*case, dtype, gen)
+    return results
 
 
 def build_kernels():
@@ -449,8 +615,8 @@ def dispersion_final_inputs(bundle):
 
 def compare_dispersion(inputs, dtype):
     """The dispersion_final kernel against its plain version at the path's
-    shape; returns (max_abs_err over the four outputs, kernel ms, plain ms,
-    bytes, operations)."""
+    shape; returns `timed`'s result, the error the worst of the four
+    outputs."""
     import torch
     from victor_tpu_torch.kernels.dispersion import (dispersion_final_cuda,
                                                      dispersion_final_plain)
@@ -466,13 +632,12 @@ def compare_dispersion(inputs, dtype):
         check(bool(torch.isnan(p).any()), f'{label} {name}: NaN planted')
         worst = max(worst, compare_outputs(f'{label} {name}', k, p, dtype))
 
-    ms_k, ms_p = time_in_turns(label, lambda: dispersion_final_cuda(*args),
-                               lambda: dispersion_final_plain(*args))
     # per element: two interval searches with their clamps, three Horner
     # evaluations, two square roots and about 30 flops of the update and the
     # Jacobian: about 70 operations
-    return (worst, ms_k, ms_p, nbytes(*args, *out_k),
-            args[3].numel() * 70)
+    return timed(label, worst, lambda: dispersion_final_cuda(*args),
+                 lambda: dispersion_final_plain(*args),
+                 nbytes(*args, *out_k), args[3].numel() * 70)
 
 
 def dispersion_paths(bundle, ref, grid):
@@ -785,7 +950,9 @@ def eval_cli(tmp):
 def mh_posterior(cfg, tmp):
     """Phase 11b: `run` with the default sampler on QUAD_BLOCK through the
     CLI. Returns (ppoly_eval launches, sampler steps, final chain points
-    (8, 4))."""
+    (8, 4), draws, max R-1, sha256 of the eight GetDist chain files)."""
+    import hashlib
+
     import numpy as np
     import torch
     from victor_tpu_torch.kernels import dispersion, ppoly
@@ -802,24 +969,29 @@ def mh_posterior(cfg, tmp):
     launches = (ppoly.LAUNCHES, dispersion.LAUNCHES)
     n_draws, n_warmup = out['n_samples'], 2000
     steps = n_warmup + n_draws
-    files = [f'{root}.{i}.txt' for i in range(1, 9)] + [
-        f'{root}.{ext}' for ext in ('paramnames', 'ranges', 'covmat',
-                                    'progress', 'input.yaml')]
+    chain_files = [f'{root}.{i}.txt' for i in range(1, 9)]
+    files = chain_files + [f'{root}.{ext}' for ext in (
+        'paramnames', 'ranges', 'covmat', 'progress', 'input.yaml')]
     check(all(os.path.isfile(f) for f in files),
           'MH wrote the GetDist chains (one per chain), .paramnames, '
           '.ranges, .covmat, .progress and .input.yaml')
-    chains = np.stack([np.loadtxt(f'{root}.{i}.txt', ndmin=2)[:, 2:6]
-                       for i in range(1, 9)], axis=1)        # (S, 8, 4)
+    digest = hashlib.sha256()
+    for f in chain_files:
+        with open(f, 'rb') as fh:
+            digest.update(fh.read())
+    chains = np.stack([np.loadtxt(f, ndmin=2)[:, 2:6] for f in chain_files],
+                      axis=1)                                   # (S, 8, 4)
     check(chains.shape == (n_draws, 8, 4) and np.isfinite(chains).all(),
           f'MH chains: {chains.shape}, finite')
     rm1 = float(np.max(split_rhat(chains) - 1))
     rate = steps / out['elapsed_s']
     print(f'  MH (default modes, 8 chains): {n_draws} draws after '
-          f'{n_warmup} warmup steps, max R-1 {rm1:.4f} (stop at 0.01, '
+          f'{n_warmup} warmup steps, max R-1 {rm1:.6f} (stop at 0.01, '
           f"{'converged' if rm1 < 0.01 else 'cap reached'}), acceptance "
           f"{out['acceptance']}, {out['elapsed_s']} s, {rate:.1f} steps/s, "
           f'ppoly_eval launches {launches[0]} ({launches[0] / (steps + 1):.2f}'
-          ' per likelihood call)', flush=True)
+          f' per likelihood call); chain files sha256 {digest.hexdigest()}',
+          flush=True)
     for name in NAMES:
         got = out['summary'][name]
         mean, std = QUAD_MEAN[name], QUAD_STD[name]
@@ -830,14 +1002,35 @@ def mh_posterior(cfg, tmp):
     check(launches[0] > 0 and launches[1] == 0,
           f'ppoly_eval kernel launches on the MH path: {launches[0]} (> 0); '
           f'dispersion_final {launches[1]} (streaming model: 0)')
-    return launches[0], steps, chains[-1]
+    return launches[0], steps, chains[-1], n_draws, rm1, digest.hexdigest()
+
+
+def cold_ms(x, coeffs, q, clamp, copies=6):
+    """Device-only ms of one ppoly_eval call with L2 cold: `copies` distinct
+    (q, out) pairs in rotation, more than the card's 50 MB L2 in all, so
+    that no launch finds its data in L2."""
+    import collections
+    import itertools
+
+    from victor_tpu_torch.kernels.ppoly import ppoly_eval_cuda
+
+    check(copies * 2 * nbytes(q) > L2_BYTES,
+          f'cold rotation: {copies} (q, out) pairs of '
+          f'{2 * nbytes(q) / 1e6:.1f} MB exceed the '
+          f'{L2_BYTES / 1e6:.0f} MB L2')
+    turn = itertools.cycle([q.clone() for _ in range(copies)])
+    live = collections.deque(maxlen=copies)     # keeps the outputs distinct
+    return device_ms(lambda: live.append(
+        ppoly_eval_cuda(x, coeffs, next(turn), clamp)))
 
 
 def sampler_kernel_case(bundle, theta):
-    """The largest ppoly_eval call of one likelihood evaluation of the MH
-    step (default modes, 8 chains) against the plain version on the same
-    inputs. Returns (max_abs_err, kernel ms, plain ms, bytes,
-    operations)."""
+    """Every ppoly_eval call of one likelihood evaluation of the MH step
+    (default modes, 8 chains) against the plain version on the same inputs,
+    each timed back to back on one q, as the MH step finds it just written
+    (L2 warm); the largest also with L2 cold (`cold_ms`). Returns the
+    largest call's `timed` result, whose `ms` is the cold reading and
+    `warm_ms` the warm one, and the results of all calls by label."""
     import torch
     from victor_tpu_torch.kernels.ppoly import (ppoly_eval_cuda,
                                                 ppoly_eval_plain)
@@ -855,19 +1048,26 @@ def sampler_kernel_case(bundle, theta):
         make_batched_loglike(bundle, NAMES)(theta)
     finally:
         splines.ppoly_eval_cuda = ppoly_eval_cuda
+    results = {}
+    for x, coeffs, q, clamp in calls:
+        out_k = ppoly_eval_cuda(x, coeffs, q, clamp)
+        out_p = ppoly_eval_plain(x, coeffs, q, clamp)
+        torch.cuda.synchronize()
+        label = (f'ppoly_eval in the MH step ({len(calls)} calls): '
+                 f'coeffs={tuple(coeffs.shape)} q={tuple(q.shape)} '
+                 f'clamp={clamp}')
+        err = compare_outputs(label, out_k, out_p, q.dtype)
+        K = coeffs.shape[1] if coeffs.ndim == 4 else 1
+        results[label] = timed(
+            label, err, lambda: ppoly_eval_cuda(x, coeffs, q, clamp),
+            lambda: ppoly_eval_plain(x, coeffs, q, clamp),
+            nbytes(x, coeffs, q, out_k), q.numel() * ppoly_ops(x.shape[0], K))
     x, coeffs, q, clamp = max(calls, key=lambda c: c[2].numel())
-    out_k = ppoly_eval_cuda(x, coeffs, q, clamp)
-    out_p = ppoly_eval_plain(x, coeffs, q, clamp)
-    torch.cuda.synchronize()
-    label = (f'ppoly_eval in the MH step: {len(calls)} calls, the largest '
-             f'coeffs={tuple(coeffs.shape)} q={tuple(q.shape)} clamp={clamp}')
-    err = compare_outputs(label, out_k, out_p, q.dtype)
-    ms_k, ms_p = time_in_turns(label,
-                               lambda: ppoly_eval_cuda(x, coeffs, q, clamp),
-                               lambda: ppoly_eval_plain(x, coeffs, q, clamp))
-    K = coeffs.shape[1] if coeffs.ndim == 4 else 1
-    return (err, ms_k, ms_p, nbytes(x, coeffs, q, out_k),
-            q.numel() * ppoly_ops(x.shape[0], K))
+    cold = cold_ms(x, coeffs, q, clamp)
+    largest = max(results.values(), key=lambda r: r['bytes'])
+    print(f'  the largest, q={tuple(q.shape)}: L2 cold {cold:.4f} ms, warm '
+          f'{largest["ms"]:.4f} ms (device only)', flush=True)
+    return {**largest, 'ms': cold, 'warm_ms': largest['ms']}, results
 
 
 def ensemble_run(bundle):
@@ -1007,16 +1207,21 @@ def mh_step_rates(bundle, card, profile_path):
 
 
 def kernel_row(name, source, replaces, launches, result, dtype):
-    """One entry of the kernels summary line from a comparison's (max_abs_err,
-    kernel ms, plain ms, bytes, operations). No single PyTorch call computes
-    either kernel's function, so library_ms is null."""
-    err, ms, plain_ms, n_bytes, ops = result
-    bound_ms, bound_by = bound(n_bytes, ops, dtype)
-    return {'name': name, 'route': 'cuda',
-            'source': f'victor_tpu_torch/kernels/csrc/{source}',
-            'replaces': replaces, 'launches': launches, 'max_abs_err': err,
-            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
-            'bound_by': bound_by, 'library_ms': None}
+    """One entry of the kernels summary line from a comparison's `timed`
+    result (device-only ms, host us per call; the sampler's row also its L2
+    warm reading, its `ms` being the cold one). No single PyTorch call
+    computes either kernel's function, so library_ms is null."""
+    bound_ms, bound_by = bound(result['bytes'], result['ops'], dtype)
+    row = {'name': name, 'route': 'cuda',
+           'source': f'victor_tpu_torch/kernels/csrc/{source}',
+           'replaces': replaces, 'launches': launches,
+           'max_abs_err': result['max_abs_err'], 'ms': result['ms'],
+           'plain_ms': result['plain_ms'], 'bound_ms': bound_ms,
+           'bound_by': bound_by, 'library_ms': None,
+           'host_us': result['host_us']}
+    if 'warm_ms' in result:
+        row.update(cold_ms=result['ms'], warm_ms=result['warm_ms'])
+    return row
 
 
 def main() -> int:
@@ -1053,23 +1258,9 @@ def main() -> int:
     build_kernels()
 
     # ---- 3. ppoly_eval kernel vs plain at the main path's shapes ----
-    print('compare ppoly_eval kernel vs plain:', flush=True)
     gen = torch.Generator(device='cuda')
     gen.manual_seed(0)
-    results = {}
-    for dtype in (torch.float64, torch.float32):
-        # v_r (31 knots) and xi_0 (30) have per-point coefficients; sigma_v
-        # (25 knots, clamp off after Bicubic2D's own clamp) has one table
-        for n, batched, clamp in ((31, True, True), (31, True, False),
-                                  (30, True, True), (25, False, False)):
-            results[(str(dtype)[6:], n, batched, clamp)] = compare_case(
-                n, batched, dtype, clamp, gen)
-    # the real-space multipoles (K = 2 for the BOSS model, 3 with the
-    # hexadecapole), per point; shared tables as a model with fixed input
-    for dtype in (torch.float64, torch.float32):
-        for K, shared in ((2, False), (3, False), (2, True), (3, True)):
-            results[(str(dtype)[6:], 'multi', K, shared)] = compare_multi(
-                K, shared, dtype, gen)
+    results = ppoly_phase(gen)
 
     # ---- 4. dispersion_final kernel vs plain at the path's shape ----
     cfg = load_config()
@@ -1165,9 +1356,14 @@ def main() -> int:
         eval_cli(tmp)
         print('sampling: MH through the CLI run', flush=True)
         t0 = time.perf_counter()
-        mh_launches, mh_steps, last = mh_posterior(cfg, tmp)
+        mh_launches, mh_steps, last, n_draws, rm1, _ = mh_posterior(cfg, tmp)
         print(f'  MH phase: {time.perf_counter() - t0:.2f} s', flush=True)
-        mh_result = sampler_kernel_case(bundle, last)
+        check(n_draws == MH_BEFORE[0] and round(rm1, 4) == MH_BEFORE[1],
+              f'MH run as before the ppoly_eval redesign: {n_draws} draws '
+              f'({MH_BEFORE[0]}), R-1 {rm1:.4f} ({MH_BEFORE[1]}); if not, an '
+              'operation of the MH step changed: compare its chain files '
+              'with the older checkout (tools/ppoly_timing.py --mh)')
+        mh_result, _ = sampler_kernel_case(bundle, last)
         print('sampling: ensemble', flush=True)
         ensemble_run(bundle)
         print('sampling: joint fit', flush=True)

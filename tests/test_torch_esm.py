@@ -313,6 +313,56 @@ def test_grid_interp_defaults_and_clamp_vs_jax(bundles):
 
 
 @pytest.fixture(scope='module')
+def w0_grid_path(tmp_path_factory):
+    """A grid over H0 and 'w0', an axis that neither package gives a default
+    value: w0 tilts log P(k) and scales both sigma8 tables, and the grid
+    spans w0 = 0 between two of its nodes."""
+    k = np.logspace(-4, np.log10(2.0), 400)
+    axes = {'H0': np.array([65.0, 67.5, 70.0]),
+            'w0': np.array([-0.4, 0.1, 0.6])}
+    logpk = np.empty((3, 3, len(k)))
+    s80g, s8zg = np.empty((3, 3)), np.empty((3, 3))
+    for i, j in itertools.product(range(3), range(3)):
+        p = jeh.eisenstein_hu_params(axes['H0'][i] / 100.0, 0.31, 0.048,
+                                     ns=0.96, As=2e-9)
+        w0 = axes['w0'][j]
+        logpk[i, j] = np.log(np.asarray(jeh.power_eh(p, jnp.asarray(k)))) \
+            + 0.2 * w0 * np.log(k / 0.1)
+        s80g[i, j] = float(jeh.sigma80(p)) * (1.0 + 0.05 * w0)
+        s8zg[i, j] = s80g[i, j] * float(jspecial.growth_factor_lcdm(
+            Z_EFF, 0.31, 0.69))
+    path = tmp_path_factory.mktemp('w0grid') / 'pk_grid_w0.npz'
+    np.savez(path, k=k, axis_names=np.asarray(list(axes)), logpk0=logpk,
+             sigma8_0=s80g, sigma8_z=s8zg, z=Z_EFF,
+             **{f'grid_{n}': a for n, a in axes.items()})
+    return str(path)
+
+
+def test_grid_axis_without_default_reads_zero_like_jax(boss_config,
+                                                       w0_grid_path):
+    """The open decision on victor_tpu/models/esm.py:93 (ROADMAP Queue 3),
+    mirrored: a grid axis that the parameters do not name and that has no
+    default is read at 0.0, silently, by both packages. The P(k) of a point
+    without w0 equals the one at w0 = 0 and victor_tpu's, and differs from
+    one at another w0."""
+    cfg = _esm_cfg(boss_config, use_eisenstein_hu=False,
+                   pk_grid_file=w0_grid_path)
+    jb, tb = pair(cfg['model'], cfg['data'])
+    assert tb.spec.esm_grid_names == ('H0', 'w0')
+    point = {k: v for k, v in ESM_PARAMS.items() if k != 'w0'}
+    got = tesm.esm_state(tb.tables, tb.spec, tp(point))
+    want = jesm.esm_state(jb.tables, jb.spec, jp(point))
+    for key in ('pk', 's8z'):
+        close(got[key][0], want[key], rtol=1e-12)
+    at_zero = tesm.esm_state(tb.tables, tb.spec, tp({**point, 'w0': 0.0}))
+    jax_zero = jesm.esm_state(jb.tables, jb.spec, jp({**point, 'w0': 0.0}))
+    np.testing.assert_array_equal(got['pk'].numpy(), at_zero['pk'].numpy())
+    close(want['pk'], jax_zero['pk'], rtol=0)
+    other = tesm.esm_state(tb.tables, tb.spec, tp({**point, 'w0': -0.3}))
+    assert not np.allclose(got['pk'].numpy(), other['pk'].numpy(), rtol=0.05)
+
+
+@pytest.fixture(scope='module')
 def states(bundles):
     """(port state of both points, victor_tpu state of each) in EH mode."""
     jb, tb = bundles['eh']

@@ -110,6 +110,146 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                               torch.zeros(2, 3, dtype=torch.float64))
 
 
+# an H100 SXM as the kernel's ppoly_eval_geometry reports it: 132 SMs, 228
+# KB of shared memory per SM, 1 KB reserved per block, 256 threads per
+# block, 8 or 6 resident blocks per SM
+H100 = ppoly.Geometry(132, 228 * 1024, 1024, 256, (8, 6))
+WAVE_1, WAVE_2 = (H100.sms * b for b in H100.blocks_per_sm)
+
+
+def _plan(B, M, K=1, n=31, itemsize=8, q_ptr=0, out_ptr=0):
+    aligned = not (q_ptr | out_ptr) % ppoly.VECTOR_BYTES
+    return ppoly.launch_plan(B, M, K, n, itemsize, aligned, H100)
+
+
+@pytest.mark.parametrize('B,M,K,itemsize', [
+    (64, 150_000, 1, 8), (64, 150_000, 2, 8), (8, 150_000, 1, 8),
+    (64, 150_000, 3, 4), (1, 9_600_000, 1, 8), (14_000, 150_000, 1, 4)])
+def test_launch_plan_is_one_whole_wave(B, M, K, itemsize):
+    """A call of at least a wave of tiles runs on exactly SMs x the blocks
+    an SM holds, all resident at once; smaller ones on one block per tile,
+    never a second wave."""
+    plan = _plan(B, M, K, itemsize=itemsize)
+    assert plan.grid == (WAVE_2 if plan.loads == 2 else WAVE_1)
+    assert plan.smem == ppoly._smem_bytes(31, K, itemsize)
+    small = _plan(8, 3000)                  # 8 rows of 6 tiles of 256 vectors
+    assert (small.loads, small.grid) == (1, 8 * 6)
+    assert _plan(1, 392, n=25).grid == 1
+    # 1,024 knots: 40,936 bytes of table per block, five blocks per SM
+    assert _plan(64, 150_000, n=1024).grid == H100.sms * 5
+    assert _plan(8, 150_000).grid == WAVE_1
+
+
+def test_launch_plan_loads_per_thread():
+    """Two vectors per thread once a call holds TWO_LOADS_WAVES waves of
+    such tiles (the batched likelihood's (64, 150000)); one for smaller
+    calls (the samplers' (8, 150000)), which then spread over every thread
+    of the wave."""
+    assert _plan(64, 150_000).loads == 2
+    assert _plan(64, 150_000, itemsize=4).loads == 2
+    assert _plan(8, 150_000).loads == 1
+    assert _plan(8, 150_000, itemsize=4).loads == 1
+    edge = ppoly.TWO_LOADS_WAVES * WAVE_2 * H100.threads * 2 * 2
+    assert _plan(1, edge).loads == 2 and _plan(1, edge - 2).loads == 1
+
+
+@pytest.mark.parametrize('itemsize', [8, 4])
+def test_launch_plan_vector_path_needs_alignment_and_even_rows(itemsize):
+    """16-byte loads only when q and out are both 16-byte aligned and M is
+    a multiple of the vector width; every other call runs the scalar path,
+    which covers any offset and any M."""
+    width = 16 // itemsize
+    assert _plan(8, 150_000, itemsize=itemsize).vec == width
+    assert _plan(8, 150_000, itemsize=itemsize, q_ptr=itemsize).vec == 1
+    assert _plan(8, 150_000, itemsize=itemsize, out_ptr=itemsize).vec == 1
+    assert _plan(8, 150_000, itemsize=itemsize, q_ptr=48, out_ptr=1024
+                 ).vec == width
+    assert _plan(8, 150_001, itemsize=itemsize).vec == 1
+    assert _plan(8, 150_000 + width, itemsize=itemsize).vec == width
+    scalar = _plan(8, 3001, itemsize=itemsize)
+    assert scalar.vec == 1 and scalar.grid == 8 * -(-3001 // H100.threads)
+
+
+def test_launch_plan_small_rows_take_one_block_each():
+    """Rows shorter than a tile (the Chebyshev nodes: 25 or 49 queries) take
+    one block each on the scalar path when M is odd or under the vector
+    width, with one vector or one query per thread; a block per row also
+    for tables that fill most of a block's shared memory."""
+    plan = _plan(8, 49)
+    assert (plan.vec, plan.loads, plan.grid) == (1, 1, 8)
+    assert plan.smem == ppoly._smem_bytes(31, 1, 8)
+    assert _plan(64, 25).grid == 64
+    assert (_plan(3, 1).vec, _plan(3, 1).grid) == (1, 3)
+    assert (_plan(16, 64).vec, _plan(16, 64).grid) == (2, 16)
+    big = _plan(8, 49, K=4, n=300)          # 42,376 bytes per table
+    assert big.grid == 8 and big.smem <= ppoly.SMEM_LIMIT
+    # with few rows no block walks more than one tile
+    assert _plan(H100.sms * 8 - 1, 49).grid == H100.sms * 8 - 1
+
+
+def test_launch_plan_grid_stays_in_range_for_a_huge_batch():
+    """An unchunked batch of 14,000 points at BOSS size (B * M = 2.1e9
+    queries, past 2^31), and 2^31 - 1 rows of 49 queries: one wave, far
+    below 2^31 - 1."""
+    B, M = 14_000, 150_000
+    for itemsize, q_ptr in ((8, 0), (4, 0), (8, 8)):
+        plan = _plan(B, M, itemsize=itemsize, q_ptr=q_ptr)
+        assert plan.grid == WAVE_2 <= 2 ** 31 - 1
+    assert _plan(2 ** 31 - 1, 49).grid == WAVE_2
+
+
+def test_smem_bytes_without_allocating():
+    """Shared memory from the itemsize: K tables, the search keys (twice
+    the first lifting step: 32 keys for 25..33 knots) and x[n-1]."""
+    assert ppoly._smem_bytes(31, 1, 8) == 8 * (4 * 30 + 32 + 1)
+    assert ppoly._smem_bytes(30, 2, 8) == 8 * (8 * 29 + 32 + 1)
+    assert ppoly._smem_bytes(31, 1, 4) == 4 * (4 * 30 + 32 + 1)
+    assert ppoly._smem_bytes(2, 1, 8) == 8 * (4 + 1 + 1)
+    assert ppoly._smem_bytes(1024, 1, 8) == 8 * (4 * 1023 + 1024 + 1)
+    assert ppoly._smem_bytes(1024, 1, 8) <= ppoly.SMEM_LIMIT
+
+
+@pytest.mark.parametrize('case,error,match', [
+    ('cpu', ValueError, 'CUDA'),
+    ('grad', RuntimeError, 'no backward'),
+    ('mixed_dtypes', TypeError, 'one dtype'),
+    ('int', TypeError, 'float32 or float64'),
+    ('five_channels', ValueError, 'channels'),
+    ('smem', ValueError, 'shared memory'),
+    ('too_many_knots', ValueError, 'knots'),
+    ('coeff_rows', ValueError, 'coeffs must be'),
+    ('q_1d', ValueError, 'q must be'),
+    ('not_contiguous', ValueError, 'contiguous'),
+])
+def test_kernel_wrapper_refuses_on_cpu(case, error, match):
+    """What the wrapper refuses, checked before any launch: the kernel's
+    checks run on CPU tensors too, and a CPU tensor that passes them is
+    refused for its device."""
+    f64 = torch.float64
+    x = torch.linspace(0.0, 1.0, 30, dtype=f64)
+    c = torch.zeros(2, 29, 4, dtype=f64)
+    q = torch.zeros(2, 7, dtype=f64)
+    bad = {
+        'cpu': (x, c, q),
+        'grad': (x, c.clone().requires_grad_(), q),
+        'mixed_dtypes': (x, c.float(), q),
+        'int': (x.long(), c.long(), q.long()),
+        'five_channels': (x, torch.zeros(2, 5, 29, 4, dtype=f64), q),
+        'smem': (torch.linspace(0.0, 1.0, 400, dtype=f64),
+                 torch.zeros(2, 4, 399, 4, dtype=f64), q),
+        'too_many_knots': (torch.linspace(0.0, 1.0, ppoly.MAX_KNOTS + 1,
+                                          dtype=f64),
+                           torch.zeros(2, ppoly.MAX_KNOTS, 4, dtype=f64), q),
+        'coeff_rows': (x, torch.zeros(3, 29, 4, dtype=f64), q),
+        'q_1d': (x, c, q[0]),
+        'not_contiguous': (x, c, torch.zeros(7, 2, dtype=f64).t()),
+    }[case]
+    before = ppoly.LAUNCHES
+    with pytest.raises(error, match=match):
+        ppoly.ppoly_eval_cuda(*bad)
+    assert ppoly.LAUNCHES == before
+
+
 @pytest.mark.parametrize('name', ['ppoly_eval', 'dispersion_final'])
 def test_build_without_nvcc_raises(monkeypatch, tmp_path, name):
     monkeypatch.setattr(_build.shutil, 'which', lambda name: None)
@@ -285,6 +425,83 @@ def test_multi_channel_kernel_refuses_what_it_cannot_take(cuda_device):
                                              device=cuda_device), q)
     three = torch.zeros(2, 3, 399, 4, dtype=x.dtype, device=cuda_device)
     assert ppoly.ppoly_eval_cuda(x, three, q).shape == (2, 3, 10)
+
+
+def _edge_inputs(rng, B, M, n, K, shared, offset):
+    """Knots sorted over [0.01, 120], random coefficients scaled by the
+    interval width (c_j ~ h^-j, values of order one), and queries from 10%
+    beyond both ends with every knot, NaN, +inf and -inf planted at the
+    front (as many as fit) and at the end, laid `offset` elements into
+    their storage."""
+    x = np.concatenate([[0.01], np.sort(rng.uniform(2.0, 120.0, n - 1))])
+    h = np.diff(x)[:, None] ** -np.arange(4.0)
+    c = rng.standard_normal((1 if shared else B, K, n - 1, 4)) * h
+    span = x[-1] - x[0]
+    base = rng.uniform(x[0] - 0.1 * span, x[-1] + 0.1 * span, B * M + offset)
+    flat = base[offset:]
+    special = np.concatenate([x, [np.nan, np.inf, -np.inf]])
+    k = min(len(special), flat.size)
+    flat[:k] = special[:k]
+    if flat.size > 2 * len(special):
+        flat[-3:] = special[-3:]
+    return x, (c if K > 1 else c[:, 0]), base
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize('B,M,n,K,shared,offset', [
+    (16, 3000, 31, 1, False, 1),        # q one element into its storage
+    (16, 3000, 30, 4, False, 1),
+    (16, 3001, 31, 1, False, 0),        # odd M
+    (16, 3001, 31, 2, False, 0),
+    (16, 1, 31, 1, False, 0),           # M = 1
+    (16, 3, 31, 1, False, 0),           # M under the vector width
+    (1, 9_600_000, 25, 1, True, 0),     # one shared table, 9.6M queries
+    (8, 49, 31, 1, False, 0),           # the Chebyshev-node lookups
+    (8, 49, 31, 3, False, 0),
+    (16, 64, 31, 1, False, 0),          # a short row on the vector path
+    (16, 65, 31, 2, True, 0),           # a short odd row, shared table
+    (1, 392, 25, 1, True, 0),
+    (16, 3000, 2, 1, False, 0),         # n = 2
+    (16, 3000, 1024, 1, False, 0),      # n = 1024
+    (16, 3000, 30, 1, False, 0),        # K = 1..4
+    (16, 3000, 30, 2, True, 0),
+    (16, 3000, 30, 3, False, 0),
+    (16, 3000, 30, 4, True, 0),
+])
+@pytest.mark.parametrize('clamp', [True, False])
+def test_kernel_edge_shapes_match_plain_on_card(cuda_device, dtype, tol, B,
+                                                M, n, K, shared, offset,
+                                                clamp):
+    """The launch plan's other paths (scalar loads for an offset q or an
+    odd M, rows shorter than a tile, a single-block call) and the table
+    sizes at both ends, against the plain version with NaN and inf positions
+    identical; each channel equals the 1-channel kernel on its table, and
+    an offset q its aligned copy, bit for bit."""
+    rng = np.random.default_rng(B + M + n + K + offset)
+    x_np, c_np, base_np = _edge_inputs(rng, B, M, n, K, shared, offset)
+    x, c, base = (torch.as_tensor(a, device=cuda_device).to(dtype)
+                  for a in (x_np, c_np, base_np))
+    q = base[offset:].view(B, M)
+    assert q.storage_offset() == offset
+    before = ppoly.LAUNCHES
+    got = ppoly.ppoly_eval_cuda(x, c, q, clamp)
+    assert ppoly.LAUNCHES == before + 1
+    want = ppoly.ppoly_eval_plain(x, c, q, clamp)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    scale = float(want[fin].abs().max())
+    assert float((got - want)[fin].abs().max()) <= tol * scale
+    for k in range(K if K > 1 else 0):
+        one = ppoly.ppoly_eval_cuda(x, c[:, k].contiguous(), q, clamp)
+        assert torch.equal(torch.nan_to_num(one), torch.nan_to_num(got[:, k]))
+    if offset:
+        aligned = ppoly.ppoly_eval_cuda(x, c, q.clone(), clamp)
+        assert torch.equal(torch.nan_to_num(aligned), torch.nan_to_num(got))
 
 
 @pytest.mark.cuda

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Time the ppoly_eval kernel of one checkout of victor_tpu_torch on the card.
+
+    python3 tools/ppoly_timing.py [--root DIR] [--mh] [--out PATH]
+
+Imports victor_tpu_torch from DIR (default: this repository), builds its
+ppoly_eval kernel with nvcc and runs chip_smoke.py's ppoly_eval phases
+against it: the main path's shapes (phase 3), the edge shapes (phase 3b),
+every lookup of one MH step with L2 cold and warm, and rows shorter than a
+tile ((8, 25), (8, 49), (64, 49)). Every time is device only
+(`chip_smoke.device_ms`) beside the wrapper's host microseconds per call
+(`chip_smoke.host_us`). `--mh` also runs phase 11b's default MH run and
+prints its draws, R-1 and the sha256 of its chain files: two checkouts give
+the same chains when the sha256 agree, on one software stack. The last line
+is one JSON object with every reading; `--out` writes it to a file as well.
+
+This is an A/B tool. To compare two versions on one card, unpack the older
+commit into a git-ignored directory and time both in turns in one command:
+
+    git archive <commit> | tar -x -C build/parent
+    for r in build/parent . . build/parent; do
+        python3 tools/ppoly_timing.py --root $r; done
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--root', default=REPO,
+                        help='checkout whose victor_tpu_torch is timed')
+    parser.add_argument('--mh', action='store_true',
+                        help="also run phase 11b's default MH run")
+    parser.add_argument('--out', help='also write the JSON line here')
+    args = parser.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    # this repository's chip_smoke.py, whatever the root holds
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(REPO, 'chip_smoke.py'))
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules['chip_smoke'] = cs
+    spec.loader.exec_module(cs)
+    import torch
+    if not torch.cuda.is_available():
+        print('ppoly_timing: no CUDA device', file=sys.stderr)
+        return 1
+    import victor_tpu_torch
+    from victor_tpu_torch.io.tables import build_tables
+    from victor_tpu_torch.kernels import _build
+    from victor_tpu_torch.kernels.ppoly import ppoly_eval_cuda
+    if not victor_tpu_torch.__file__.startswith(root):
+        raise RuntimeError(f'imported {victor_tpu_torch.__file__}, not the '
+                           f'package under {root}')
+    card = cs.card_line()
+    print(f'root {root}; card: {card}', flush=True)
+    lib = _build.build('ppoly_eval')
+    print(lib.with_suffix('.log').read_text().strip(), flush=True)
+
+    f64 = torch.float64
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    rows = {}
+
+    def keep(label, result, dtype):
+        bound_ms, _ = cs.bound(result['bytes'], result['ops'], dtype)
+        rows[label] = {k: result[k] for k in ('ms', 'plain_ms', 'host_us')}
+        rows[label].update(bound_ms=bound_ms,
+                           share=bound_ms / result['ms'])
+        if 'warm_ms' in result:
+            rows[label]['warm_ms'] = result['warm_ms']
+
+    for key, result in cs.ppoly_phase(gen).items():
+        dtype = key[0]
+        if key[1] == 'multi':
+            label = f'K={key[2]} {"shared" if key[3] else "per-row"} n=30'
+        else:
+            label = (f'n={key[1]} {"per-row" if key[2] else "shared"} '
+                     f'clamp={key[3]}')
+        keep(f'{label} {dtype}', result, getattr(torch, dtype))
+
+    cfg = cs.load_config()
+    bundle = build_tables(cfg['model'], cfg['data'], device='cuda',
+                          dtype=f64)
+    largest, step = cs.sampler_kernel_case(bundle, cs.draw_theta(8, 5, 'cuda'))
+    for label, result in step.items():
+        keep(label, result, f64)
+    keep('MH step, largest, L2 cold (warm_ms: warm)', largest, f64)
+
+    # rows shorter than a tile, as the Chebyshev-node lookups give them
+    x = torch.linspace(0.01, 120.0, 31, device='cuda', dtype=f64)
+    for B, M in ((8, 25), (8, 49), (64, 49)):
+        coeffs = torch.randn((B, 30, 4), generator=gen, device='cuda',
+                             dtype=f64)
+        q = torch.rand((B, M), generator=gen, device='cuda', dtype=f64)
+        q = q * 130.0 - 5.0
+
+        def call():
+            return ppoly_eval_cuda(x, coeffs, q)
+        rows[f'small rows ({B}, {M}) n=31 per-row float64'] = {
+            'ms': cs.device_ms(call, reps=200), 'host_us': cs.host_us(call)}
+
+    summary = {'root': root, 'card': card, 'kernels': rows}
+    if args.mh:
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            _, steps, _, n_draws, rm1, digest = cs.mh_posterior(cfg, tmp)
+        summary['mh'] = {'steps': steps, 'draws': n_draws, 'rm1': rm1,
+                         'sha256': digest}
+    line = json.dumps(summary)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, 'w') as f:
+            f.write(line + '\n')
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

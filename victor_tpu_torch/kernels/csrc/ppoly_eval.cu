@@ -20,130 +20,402 @@
 // The `+ (qq - qq)` term is 0 for finite qq and NaN for a NaN query, so an
 // invalid parameter point reaches the likelihood's NaN guard as NaN. The
 // clamp is written with selects, not fmin/fmax: those return the non-NaN
-// operand and would turn a NaN query into x[0].
+// operand and would turn a NaN query into x[0]. The interval is found by
+// binary lifting over the knots (the largest i in [0, n-2] with x[i] <= qq,
+// 0 when there is none or qq is NaN), which is the clip above for sorted x.
+// K is a template argument, so each channel's arithmetic is the same
+// instruction sequence whatever K and whichever path below: channel k of a
+// K-channel call equals a 1-channel call on table k bit for bit. nvcc
+// contracts c3*t + c2 into an FMA, so results differ from the plain PyTorch
+// version (separately rounded multiply and add) by a few ulp.
 //
-// Layout: one thread per query. Each block serves one batch row: it stages
-// the knots and that row's K coefficient tables (about 1 KB per channel at
-// n = 31 in f64) in shared memory, then its threads stride over a slice of
-// the row, find the interval once by binary search over the staged knots and
-// evaluate Horner's rule K times, one per channel. K is a template argument,
-// so each channel's arithmetic is the same instruction sequence whatever K
-// is: channel k of a K-channel call equals a 1-channel call on table k bit for
-// bit. Rows and slices share gridDim.x, so a batch larger than 65,535 rows
-// needs no gridDim.y; offsets are 64-bit because B*K*M passes 2^31 for a
-// batch of about 14k parameter points.
+// Bound: bytes. Per query the kernel reads q and writes K outputs ((1 + K) * 8
+// B in f64) against about 5 compares and 6K flops, so the card's memory rate
+// is the limit to aim at. On the H100 the first thing in the way is the
+// shared-memory pipe, not the loads in flight. Measured on an H100 SXM at
+// 700 W at (64, 150000) f64: one query per thread with a bounds-checked
+// search, x[i] read again for t and four scalar coefficient loads reached 59%
+// of the byte bound; a copy kernel of the same shape 75-83%, and the same
+// kernel without its search 75-83%. So the design spends few shared-memory
+// wavefronts per query and keeps enough loads in flight around them:
 //
-// Bound: bytes. Per point it reads q and writes K outputs ((1 + K) * 8 B in
-// f64) against about 5 compares and 6K flops, so the kernel cannot beat the
-// card's memory rate and makes no attempt to: nothing here is tuned.
-// nvcc contracts c3*t + c2 into an FMA, so results differ from the plain
-// PyTorch version (separately rounded multiply and add) by a few ulp.
+// * Fewer shared-memory accesses. The search keys sit in their own array,
+//   padded with NaN up to twice the first lifting step, so a step is one
+//   load and one compare with no bounds check (NaN <= qq is false for every
+//   qq, +inf included); the key of the chosen interval is carried out of the
+//   search, so t = qq - x[i] needs no further load. In f64 a channel's
+//   coefficients are split into a (c0, c1) and a (c2, c3) array of 16-byte
+//   pairs, which halves the stride between intervals and with it the bank
+//   conflicts of the two coefficient loads; f32 keeps (c0..c3) in one 16-byte
+//   load.
+// * Vector loads issued before the search. A thread owns LOADS = 1 or 2
+//   vectors of 16 bytes (double2 / float4) per tile and issues them all
+//   before it searches any; the j-th vectors of a block's threads are one
+//   contiguous run, so each warp-wide load and store is coalesced. Query
+//   loads and output stores carry the evict-first hint (ld.global.cs,
+//   st.global.cs): nothing in this kernel touches them twice, and on the
+//   samplers' shape with L2 cold the hinted loads measured 3% faster.
+// * A whole-wave grid. The wrapper launches (SM count) x (blocks an SM holds)
+//   blocks, all resident at once (__launch_bounds__ caps the registers so
+//   that 8 blocks fit with one vector per thread, 6 with two: tighter caps
+//   spilled), or one block per tile when there are fewer tiles. Blocks walk
+//   the (row, tile) pairs grid-stride, so at any moment the card streams one
+//   contiguous window of q: contiguous per-block shares of the same grid
+//   measured 6 points of the bound lower. The plan takes LOADS = 2 when the
+//   call has at least four such waves of work, else 1, so that a small call
+//   (the samplers' (8, 150000)) spreads over every thread in fewer rounds.
+// * The table behind the first loads. A block issues its tile's query loads,
+//   then stages the row's tables in shared memory (every staging load issued
+//   before the first store), so the table's latency overlaps the queries'
+//   instead of adding to it; it re-stages only when its row changes (per-row
+//   tables) and never with one shared table.
+// * Small rows take one tile each. A row shorter than a tile (the
+//   Chebyshev-node lookups, 25 or 49 queries) is one block's tile, mostly
+//   idle threads. Packing such rows several to a block, one warp each, timed
+//   the same on an H100 SXM at 700 W (3.0 us at 8 rows of 49): such a call is
+//   one launch's latency, whatever the block shape.
+//
+// The vector path needs q and out 16-byte aligned and M a multiple of the
+// vector width, so that every row starts aligned; the wrapper's launch plan
+// (kernels/ppoly.py::launch_plan) sends any other call (a q at an odd storage
+// offset, an odd M) down the scalar path of the same kernel. Offsets are
+// 64-bit: B*K*M passes 2^31 for an unchunked batch of about 14k points. The
+// grid is the wrapper's choice: any grid covers every tile.
+//
+// Shared memory of one staged table (the wrapper's _smem_bytes): K channels
+// of 4(n-1) coefficients, S = max(2 * first step, 1) search keys, x[n-1].
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-template <typename T, int K>
-__global__ void ppoly_eval_kernel(const T* __restrict__ x,
-                                  const T* __restrict__ coeffs,
-                                  const T* __restrict__ q,
-                                  T* __restrict__ out,
-                                  int n, int64_t M, int64_t blocks_per_row,
-                                  int per_row_coeffs, int clamp) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    T* sx = reinterpret_cast<T*>(smem_raw);
-    T* sc = sx + n;
-    const int table = (n - 1) * 4;           // one channel's coefficients
+constexpr int THREADS = 256;        // threads per block
+// resident blocks per SM that the wrapper's grid assumes, with 1 and with 2
+// vectors per thread (registers capped at 32 and 40 by __launch_bounds__);
+// the wrapper reads these through ppoly_eval_geometry
+constexpr int BLOCKS_PER_SM_1 = 8;
+constexpr int BLOCKS_PER_SM_2 = 6;
 
-    const int64_t row = blockIdx.x / blocks_per_row;
-    const int64_t slice = blockIdx.x - row * blocks_per_row;
-    const T* crow = coeffs + (per_row_coeffs ? row * (int64_t)K * table : 0);
+template <typename T> __device__ __forceinline__ T quiet_nan();
+template <> __device__ __forceinline__ double quiet_nan<double>() {
+    return __longlong_as_double(0x7ff8000000000000LL);
+}
+template <> __device__ __forceinline__ float quiet_nan<float>() {
+    return __int_as_float(0x7fc00000);
+}
 
-    for (int i = threadIdx.x; i < n; i += blockDim.x) sx[i] = x[i];
-    for (int i = threadIdx.x; i < K * table; i += blockDim.x) sc[i] = crow[i];
-    __syncthreads();
+// Loads and stores of VEC consecutive elements of q and out, both with the
+// evict-first hint (ld.global.cs, st.global.cs): each is touched once here.
+template <typename T, int VEC> struct Vec;
 
-    const T x0 = sx[0];
-    const T xn = sx[n - 1];
-    const T* qrow = q + row * M;
-    T* orow = out + row * (int64_t)K * M;
-    const int64_t stride = blocks_per_row * (int64_t)blockDim.x;
-    for (int64_t j = slice * (int64_t)blockDim.x + threadIdx.x; j < M;
-         j += stride) {
-        T qq = qrow[j];
-        if (clamp) {
-            qq = (qq < x0) ? x0 : qq;
-            qq = (qq > xn) ? xn : qq;
-        }
-        // largest i in [0, n-2] with x[i] <= qq (i = 0 when none, or NaN)
-        int lo = 0, hi = n - 2;
-        while (lo < hi) {
-            const int mid = (lo + hi + 1) >> 1;
-            if (sx[mid] <= qq) lo = mid; else hi = mid - 1;
-        }
-        const T t = qq - sx[lo];
+template <> struct Vec<double, 2> {
+    static __device__ __forceinline__ void load(const double* p, double* a) {
+        const double2 v = __ldcs(reinterpret_cast<const double2*>(p));
+        a[0] = v.x;
+        a[1] = v.y;
+    }
+    static __device__ __forceinline__ void store(double* p, const double* a) {
+        __stcs(reinterpret_cast<double2*>(p), make_double2(a[0], a[1]));
+    }
+};
+
+template <> struct Vec<float, 4> {
+    static __device__ __forceinline__ void load(const float* p, float* a) {
+        const float4 v = __ldcs(reinterpret_cast<const float4*>(p));
+        a[0] = v.x;
+        a[1] = v.y;
+        a[2] = v.z;
+        a[3] = v.w;
+    }
+    static __device__ __forceinline__ void store(float* p, const float* a) {
+        __stcs(reinterpret_cast<float4*>(p),
+               make_float4(a[0], a[1], a[2], a[3]));
+    }
+};
+
+template <typename T> struct Vec<T, 1> {
+    static __device__ __forceinline__ void load(const T* p, T* a) {
+        a[0] = __ldcs(p);
+    }
+    static __device__ __forceinline__ void store(T* p, const T* a) {
+        __stcs(p, a[0]);
+    }
+};
+
+// The staged table of one row: K channels of coefficients, then the search
+// keys, then x[n-1]. f64 channels are split into (c0, c1) and (c2, c3) pair
+// arrays; f32 channels keep (c0..c3) together.
+template <typename T>
+struct Table {
+    int n, table, keys;     // knots, coefficients per channel, search keys
+    int step;               // first step of the binary lifting
+
+    __device__ __forceinline__ explicit Table(int n_)
+        : n(n_), table(4 * (n_ - 1)) {
+        step = n > 2 ? 1 << (31 - __clz(n - 2)) : 0;
+        keys = step > 0 ? 2 * step : 1;
+    }
+
+    // Copy K channels of `crow` and the knots into `sm` (threads tid, tid +
+    // nt, ... of the copy), U loads in flight per thread: each pass issues
+    // its loads before its stores. f64 coefficient e of interval iv goes to
+    // the (c0, c1) or the (c2, c3) pair array of its channel.
+    template <int K, int U>
+    __device__ __forceinline__ void stage(T* sm, const T* __restrict__ x,
+                                          const T* __restrict__ crow, int tid,
+                                          int nt) const {
 #pragma unroll
         for (int k = 0; k < K; ++k) {
-            const T* c = sc + k * table + 4 * lo;
-            orow[k * M + j] = ((c[3] * t + c[2]) * t + c[1]) * t + c[0]
-                              + (qq - qq);
+            for (int base = tid; base < table; base += U * nt) {
+                T v[U];
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int i = base + u * nt;
+                    if (i < table) v[u] = __ldg(crow + k * table + i);
+                }
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    const int i = base + u * nt;
+                    if (i >= table) continue;
+                    const int slot = sizeof(T) == 8
+                        ? (i & 2) * (table >> 2) + 2 * (i >> 2) + (i & 1) : i;
+                    sm[k * table + slot] = v[u];
+                }
+            }
+        }
+        T* key = sm + K * table;
+        for (int base = tid; base <= keys; base += U * nt) {
+            T v[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int i = base + u * nt;
+                const int src = i < keys ? i : n - 1;   // x[n-1] last
+                v[u] = (i <= keys && (i == keys || i <= n - 2))
+                    ? __ldg(x + src) : quiet_nan<T>();
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int i = base + u * nt;
+                if (i <= keys) key[i] = v[u];
+            }
+        }
+    }
+
+    // Clamp P queries into [x[0], x[n-1]] with selects and find each one's
+    // interval and its key x[i]. The lifting steps are the outer loop, so the
+    // P searches interleave.
+    template <int K, int P>
+    __device__ __forceinline__ void locate(const T* sm, int clamp, T* qq,
+                                           int* idx, T* xl) const {
+        const T* key = sm + K * table;
+        const T x0 = key[0];
+        const T xn = key[keys];
+#pragma unroll
+        for (int p = 0; p < P; ++p) {
+            if (clamp) {
+                qq[p] = (qq[p] < x0) ? x0 : qq[p];
+                qq[p] = (qq[p] > xn) ? xn : qq[p];
+            }
+            idx[p] = 0;
+            xl[p] = x0;
+        }
+        for (int s = step; s > 0; s >>= 1) {
+#pragma unroll
+            for (int p = 0; p < P; ++p) {
+                const T xc = key[idx[p] + s];   // NaN past x[n-2]: never taken
+                const bool take = xc <= qq[p];
+                idx[p] = take ? idx[p] + s : idx[p];
+                xl[p] = take ? xc : xl[p];
+            }
+        }
+    }
+
+    // Channel k at a located query: Horner's rule plus the NaN term.
+    __device__ __forceinline__ T value(const T* sm, int k, int i, T xi,
+                                       T qq) const {
+        T c0, c1, c2, c3;
+        coeffs(sm + k * table, i, c0, c1, c2, c3);
+        const T t = qq - xi;
+        return ((c3 * t + c2) * t + c1) * t + c0 + (qq - qq);
+    }
+
+    __device__ __forceinline__ void coeffs(const T* c, int i, T& c0, T& c1,
+                                           T& c2, T& c3) const;
+};
+
+template <>
+__device__ __forceinline__ void Table<double>::coeffs(
+        const double* c, int i, double& c0, double& c1, double& c2,
+        double& c3) const {
+    const double2 lo = reinterpret_cast<const double2*>(c)[i];
+    const double2 hi = reinterpret_cast<const double2*>(c + (table >> 1))[i];
+    c0 = lo.x; c1 = lo.y; c2 = hi.x; c3 = hi.y;
+}
+
+template <>
+__device__ __forceinline__ void Table<float>::coeffs(
+        const float* c, int i, float& c0, float& c1, float& c2,
+        float& c3) const {
+    const float4 v = reinterpret_cast<const float4*>(c)[i];
+    c0 = v.x; c1 = v.y; c2 = v.z; c3 = v.w;
+}
+
+// Tiles of THREADS * LOADS vectors within a row, walked grid-stride by a
+// grid of at most one wave.
+template <typename T, int K, int VEC, int LOADS>
+__global__ void __launch_bounds__(THREADS, LOADS == 1 ? BLOCKS_PER_SM_1
+                                                      : BLOCKS_PER_SM_2)
+ppoly_tiles(const T* __restrict__ x, const T* __restrict__ coeffs,
+            const T* __restrict__ q, T* __restrict__ out, int n, int64_t B,
+            int64_t M, int per_row_coeffs, int clamp) {
+    constexpr int P = LOADS * VEC;
+    constexpr int TILE = THREADS * LOADS;        // vectors
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* sm = reinterpret_cast<T*>(smem_raw);
+    const Table<T> tab(n);
+
+    const int64_t Mv = M / VEC;                   // vectors per row
+    const int64_t per_row = (Mv + TILE - 1) / TILE;
+    const int64_t tiles = B * per_row;
+    int64_t staged = -1;
+    for (int64_t t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int64_t row = t / per_row;
+        const int64_t first = row * Mv + (t - row * per_row) * TILE;
+        const int64_t row_end = (row + 1) * Mv;
+        T qq[P];
+#pragma unroll
+        for (int j = 0; j < LOADS; ++j) {
+            const int64_t v = first + j * THREADS + threadIdx.x;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) qq[j * VEC + e] = T(0);
+            if (v < row_end) Vec<T, VEC>::load(q + v * VEC, qq + j * VEC);
+        }
+        const int64_t want = per_row_coeffs ? row : 0;
+        if (want != staged) {                    // uniform across the block
+            if (staged >= 0) __syncthreads();    // the old table is done with
+            tab.template stage<K, 2>(sm, x, coeffs + want * K * tab.table,
+                                     threadIdx.x, THREADS);
+            __syncthreads();
+            staged = want;
+        }
+        int idx[P];
+        T xl[P];
+        tab.template locate<K, P>(sm, clamp, qq, idx, xl);
+        T* orow = out + row * (K - 1) * M;       // + k * M + flat element
+#pragma unroll
+        for (int j = 0; j < LOADS; ++j) {
+            const int64_t v = first + j * THREADS + threadIdx.x;
+            if (v >= row_end) continue;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                T o[VEC];
+#pragma unroll
+                for (int e = 0; e < VEC; ++e)
+                    o[e] = tab.value(sm, k, idx[j * VEC + e], xl[j * VEC + e],
+                                     qq[j * VEC + e]);
+                Vec<T, VEC>::store(orow + k * M + v * VEC, o);
+            }
         }
     }
 }
 
+template <typename T, int K, int VEC>
+void launch_tiles(int loads, int grid, int smem, cudaStream_t s, const T* x,
+                  const T* c, const T* q, T* o, int n, long long B,
+                  long long M, int per_row_coeffs, int clamp) {
+    if (loads == 2)
+        ppoly_tiles<T, K, VEC, 2><<<grid, THREADS, smem, s>>>(
+            x, c, q, o, n, B, M, per_row_coeffs, clamp);
+    else
+        ppoly_tiles<T, K, VEC, 1><<<grid, THREADS, smem, s>>>(
+            x, c, q, o, n, B, M, per_row_coeffs, clamp);
+}
+
 template <typename T, int K>
 int launch_k(const void* x, const void* coeffs, const void* q, void* out,
-             int n, long long B, long long M, long long blocks_per_row,
-             int per_row_coeffs, int clamp, void* stream) {
-    const int threads = 256;
-    const size_t smem = sizeof(T) * ((size_t)n + 4 * (size_t)K * (n - 1));
-    const dim3 grid((unsigned int)(B * blocks_per_row));
-    ppoly_eval_kernel<T, K><<<grid, threads, smem, (cudaStream_t)stream>>>(
-        static_cast<const T*>(x), static_cast<const T*>(coeffs),
-        static_cast<const T*>(q), static_cast<T*>(out), n, (int64_t)M,
-        (int64_t)blocks_per_row, per_row_coeffs, clamp);
+             int n, long long B, long long M, int per_row_coeffs, int clamp,
+             int vec, int loads, int grid, int smem, void* stream) {
+    const T* xt = static_cast<const T*>(x);
+    const T* ct = static_cast<const T*>(coeffs);
+    const T* qt = static_cast<const T*>(q);
+    T* ot = static_cast<T*>(out);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    constexpr int VW = 16 / sizeof(T);
+    if ((loads != 1 && loads != 2) || grid < 1)
+        return (int)cudaErrorInvalidValue;
+    if (vec == VW)
+        launch_tiles<T, K, VW>(loads, grid, smem, s, xt, ct, qt, ot, n, B, M,
+                               per_row_coeffs, clamp);
+    else if (vec == 1)
+        launch_tiles<T, K, 1>(loads, grid, smem, s, xt, ct, qt, ot, n, B, M,
+                              per_row_coeffs, clamp);
+    else
+        return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* coeffs, const void* q, void* out,
-           int n, int K, long long B, long long M, long long blocks_per_row,
-           int per_row_coeffs, int clamp, void* stream) {
+           int n, int K, long long B, long long M, int per_row_coeffs,
+           int clamp, int vec, int loads, int grid, int smem, void* stream) {
     switch (K) {
         case 1: return launch_k<T, 1>(x, coeffs, q, out, n, B, M,
-                                      blocks_per_row, per_row_coeffs, clamp,
-                                      stream);
+                                      per_row_coeffs, clamp, vec, loads, grid,
+                                      smem, stream);
         case 2: return launch_k<T, 2>(x, coeffs, q, out, n, B, M,
-                                      blocks_per_row, per_row_coeffs, clamp,
-                                      stream);
+                                      per_row_coeffs, clamp, vec, loads, grid,
+                                      smem, stream);
         case 3: return launch_k<T, 3>(x, coeffs, q, out, n, B, M,
-                                      blocks_per_row, per_row_coeffs, clamp,
-                                      stream);
+                                      per_row_coeffs, clamp, vec, loads, grid,
+                                      smem, stream);
         case 4: return launch_k<T, 4>(x, coeffs, q, out, n, B, M,
-                                      blocks_per_row, per_row_coeffs, clamp,
-                                      stream);
+                                      per_row_coeffs, clamp, vec, loads, grid,
+                                      smem, stream);
         default: return (int)cudaErrorInvalidValue;
     }
 }
 
 }  // namespace
 
-// Plain C entry points for ctypes. The caller validates shapes and sizes;
-// the return value is cudaGetLastError() right after the launch, or
-// cudaErrorInvalidValue for a channel count outside 1..4.
+// Plain C entry points for ctypes. The caller validates shapes and sizes and
+// passes the launch plan (vector width 1 or 16 bytes' worth, 1 or 2 vectors
+// per thread, grid, dynamic shared memory bytes). The return value is
+// cudaGetLastError() right after the launch, or cudaErrorInvalidValue for a
+// channel count outside 1..4 or a plan the kernel does not take.
 extern "C" int ppoly_eval_f64(const void* x, const void* coeffs, const void* q,
                               void* out, int n, int K, long long B,
-                              long long M, long long blocks_per_row,
-                              int per_row_coeffs, int clamp, void* stream) {
-    return launch<double>(x, coeffs, q, out, n, K, B, M, blocks_per_row,
-                          per_row_coeffs, clamp, stream);
+                              long long M, int per_row_coeffs, int clamp,
+                              int vec, int loads, int grid, int smem,
+                              void* stream) {
+    return launch<double>(x, coeffs, q, out, n, K, B, M, per_row_coeffs, clamp,
+                          vec, loads, grid, smem, stream);
 }
 
 extern "C" int ppoly_eval_f32(const void* x, const void* coeffs, const void* q,
                               void* out, int n, int K, long long B,
-                              long long M, long long blocks_per_row,
-                              int per_row_coeffs, int clamp, void* stream) {
-    return launch<float>(x, coeffs, q, out, n, K, B, M, blocks_per_row,
-                         per_row_coeffs, clamp, stream);
+                              long long M, int per_row_coeffs, int clamp,
+                              int vec, int loads, int grid, int smem,
+                              void* stream) {
+    return launch<float>(x, coeffs, q, out, n, K, B, M, per_row_coeffs, clamp,
+                         vec, loads, grid, smem, stream);
+}
+
+// What the wrapper's launch plan needs of the card and of this kernel, in
+// g[0..5]: the device's SM count, shared memory per SM and shared memory
+// reserved per resident block (bytes), THREADS, and the resident blocks per
+// SM with one and with two vectors per thread. Returns a CUDA error code.
+extern "C" int ppoly_eval_geometry(int device, int* g) {
+    const cudaDeviceAttr attrs[3] = {
+        cudaDevAttrMultiProcessorCount,
+        cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+        cudaDevAttrReservedSharedMemoryPerBlock};
+    for (int i = 0; i < 3; ++i) {
+        const cudaError_t err = cudaDeviceGetAttribute(g + i, attrs[i], device);
+        if (err != cudaSuccess) return (int)err;
+    }
+    g[3] = THREADS;
+    g[4] = BLOCKS_PER_SM_1;
+    g[5] = BLOCKS_PER_SM_2;
+    return 0;
 }
