@@ -68,14 +68,34 @@ result line is printed):
       is twice the single dataset's, dense and factored; then a short MH
       run on it and its evals/s;
    e. MH steps/s in the default and in the exact perf modes, and the
-      kernels' device time per step under torch.profiler (information).
+      kernels' device time per step under torch.profiler (information);
+12. the gradient path at full BOSS width, f64 ('auto' modes resolved for
+   gradients: streaming_eval and beta_covariance exact, dispersion_final
+   fast):
+   a. the ppoly_eval backward kernel against its plain version at the three
+      lookups of one gradient of the HMC target (captured), at K = 2 and 3
+      over (8, 150000) and at EDGE_CASES, in f64 and f32, NaN and inf
+      positions identical; each call twice, for the same bits; the
+      lookups' backward timed;
+   b. two 10-step HMC segments from one saved state: the same bits; the
+      ops that torch itself flags as non-deterministic on the path, listed;
+   c. d lnL / d theta of GRAD_CASES at GOLDEN and DISPLACED against
+      victor_tpu's jax.grad (GRAD_GOLDENS) within 1e-8, and 3 backward
+      launches per gradient on the streaming path;
+   d. `run --sampler hmc` through the CLI with its defaults on QUAD_BLOCK,
+      rhat_stop 0.01, at most HMC_DRAWS draws: R-1 < 0.01, moments within
+      0.2 sigma and 15% of the quadrature; leapfrogs/s;
+   e. `run --sampler nuts` (NUTS_WARMUP, NUTS_SAMPLES), in a process of its
+      own beside d: every draw finite and inside the prior box, the moments
+      within 0.3 sigma and 25%, mean tree depth and acceptance statistic;
+   f. HMC leapfrogs/s with streaming_eval 'exact' and 'fast', and the
+      kernels' device time per leapfrog under torch.profiler (information).
 
 The last two lines are a JSON summary of the kernels (device-only `ms`,
 `host_us`; the sampler row's `ms` is its L2-cold reading, beside `warm_ms`)
 and the result line {"ok": true, "device": {...}}. `--profile PATH` also
-writes a
-torch.profiler summary of one batch of each timed configuration, and of 100
-MH steps in each perf mode, to PATH.
+writes a torch.profiler summary of one batch of each timed configuration,
+of 20 MH steps in each perf mode and of 2 HMC steps to PATH.
 """
 
 import argparse
@@ -211,6 +231,52 @@ MH_N_SAMPLES = 8000           # the CLI's draw cap (the default)
 # must repeat. Whether the chains repeat byte for byte is an A/B of two
 # checkouts on one software stack: tools/ppoly_timing.py --mh.
 MH_BEFORE = (5500, 0.0096)
+# Phase 12d: the HMC run's seed and draw cap. The BOSS likelihood jumps at
+# the 31 beta-grid points of its data (the reference's covariance blend,
+# victor_tpu alike), which slows HMC in beta: seeds 0-5 read max R-1
+# 0.012-0.035 at 700 draws, the CLI's default cap (PERF.md §6), so
+# the run may take up to HMC_DRAWS draws to reach R-1 < 0.01.
+HMC_SEED, HMC_DRAWS = 0, 1500
+# Phase 12e's schedule: NUTS runs beside 12d, shortened to fit its time
+NUTS_WARMUP, NUTS_SAMPLES = 300, 100
+# Phase 12c: the cases whose d lnL / d theta the card must reproduce (opts_kw
+# on configs/boss_config.yaml, 'auto' modes resolved for gradients), and
+# [gradient at GOLDEN, gradient at DISPLACED] of each from victor_tpu's
+# jax.grad on the CPU in f64, recomputed and compared with these literals by
+# tests/test_torch_grad.py::test_chip_smoke_grad_goldens_match_victor_tpu
+GRAD_CASES = {
+    'streaming': {},
+    "dispersion, final 'fast'": {'rsd_model': 'dispersion'},
+    "dispersion, final 'exact'": {'rsd_model': 'dispersion',
+                                  'dispersion_final': 'exact'},
+    'kaiser': {'rsd_model': 'kaiser'},
+    'assume_isotropic=False': {'assume_isotropic': False},
+}
+GRAD_GOLDENS = {
+    'streaming': [
+        [56.45344426963328, -130.2069392753318, -0.003852798635966881,
+         190.61201154788787],
+        [-15.75898713043464, -44.08340938350945, 0.04969156792760965,
+         -194.93946974715587]],
+    "dispersion, final 'fast'": [
+        [56.38121156419226, -131.33309135655824, -0.0037680618338981064,
+         190.06594241088052],
+        [-15.85409353574934, -43.7525851912155, 0.04971361373162575,
+         -195.4891547939841]],
+    "dispersion, final 'exact'": [
+        [56.38751430647459, -131.40486063732172, -0.003781073962232928,
+         190.05311043174308],
+        [-15.846006615092529, -43.88485765461545, 0.04970521800206562,
+         -195.53524519149684]],
+    'kaiser': [
+        [-11.934515880633324, -293.3659756813795, 0.0, 187.51326225467133],
+        [-55.71673424725168, -18.389099191615117, 0.0, -185.80174058428557]],
+    'assume_isotropic=False': [
+        [56.46664057539094, -104.50105367309465, -0.0038783333679028864,
+         175.59459641578303],
+        [-2.280949331992624, 3.5634327288147776, 0.04069777415296494,
+         -291.18816469237646]],
+}
 
 
 def check(ok, what):
@@ -480,17 +546,12 @@ EDGE_CASES = [
 ]
 
 
-def edge_case(label, B, M, n, K, shared, clamp, offset, dtype, gen):
-    """One of EDGE_CASES: the kernel against its plain version, NaN and inf
-    positions identical, on queries from 10% of the span beyond both ends
-    with every knot, NaN, +inf and -inf planted at the front and NaN and
-    infinities at the end; each channel against the 1-channel kernel on its
-    table, and the offset q against an aligned copy, bit for bit."""
+def edge_inputs(B, M, n, K, shared, offset, dtype, gen):
+    """The inputs of one of EDGE_CASES: knots, coefficients and queries from
+    10% of the span beyond both ends with every knot, NaN, +inf and -inf
+    planted at the front and at the end."""
     import numpy as np
     import torch
-    from victor_tpu_torch.kernels.ppoly import (ppoly_eval_cuda,
-                                                ppoly_eval_plain)
-
     rng = np.random.default_rng(B * 7 + M + n + K)
     x_np = np.concatenate([[0.01], np.sort(rng.uniform(2.0, 120.0, n - 1))])
     h = np.diff(x_np)[:, None] ** -np.arange(4.0)      # c_j scaled by h^-j
@@ -509,6 +570,20 @@ def edge_case(label, B, M, n, K, shared, clamp, offset, dtype, gen):
     flat[:min(len(special), flat.numel())] = special[:flat.numel()]
     if flat.numel() > 2 * len(special):
         flat[-3:] = special[-3:]
+    return x, coeffs, q
+
+
+def edge_case(label, B, M, n, K, shared, clamp, offset, dtype, gen):
+    """One of EDGE_CASES: the kernel against its plain version, NaN and inf
+    positions identical, on queries from 10% of the span beyond both ends
+    with every knot, NaN, +inf and -inf planted at the front and NaN and
+    infinities at the end; each channel against the 1-channel kernel on its
+    table, and the offset q against an aligned copy, bit for bit."""
+    import torch
+    from victor_tpu_torch.kernels.ppoly import (ppoly_eval_cuda,
+                                                ppoly_eval_plain)
+
+    x, coeffs, q = edge_inputs(B, M, n, K, shared, offset, dtype, gen)
     label = (f'edge: {label}: q={tuple(q.shape)} (offset {offset}) '
              f'coeffs={tuple(coeffs.shape)} {str(dtype)[6:]} clamp={clamp}')
     out_k = ppoly_eval_cuda(x, coeffs, q, clamp)
@@ -850,7 +925,7 @@ def esm_paths():
 
 def throughput(configs, card, profile_path):
     """Phase 10 (information only): evaluations per second of 4096 points,
-    chunk 64, one warm-up and three timed reps per configuration. Each
+    chunk 64, one warm-up and two timed reps per configuration. Each
     configuration is (label, bundle, parameter names, theta, opts_kw, base
     params)."""
     import torch
@@ -866,12 +941,12 @@ def throughput(configs, card, profile_path):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
-        for _ in range(3):
+        for _ in range(2):
             t0 = time.perf_counter()
             loglike(theta)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        rate = 3 * n / sum(times)
+        rate = 2 * n / sum(times)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         print(f'throughput {name}: {rate:.1f} evals/s (f64, {n} points, '
               f'{finite} finite, chunk {CHUNK}, reps '
@@ -1170,8 +1245,9 @@ def joint_fit(cfg, bundle, tmp):
 def mh_step_rates(bundle, card, profile_path):
     """Phase 11e (information): MH steps/s of 8 chains on QUAD_BLOCK, 300
     steps (100 of warmup), in the default modes and the exact ones; then
-    the device time per step of 100 more steps under torch.profiler (the
-    kernels' own time, against the step's wall time), whose table goes to
+    the device time per step of 20 more steps under torch.profiler (the
+    kernels' own time, against the step's wall time; the profiler's
+    post-processing grows with the steps), whose table goes to
     `profile_path` when one is given."""
     import torch
     from torch.autograd import DeviceType
@@ -1190,20 +1266,451 @@ def mh_step_rates(bundle, card, profile_path):
               f'{300 / res.elapsed_s:.1f} on {card}', flush=True)
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            res = run(kw, 50, 50)
+            res = run(kw, 10, 10)
             torch.cuda.synchronize()
         events = prof.key_averages()
         # kernels only: an operator's own device time is its kernels'
         device_us = sum(e.device_time_total for e in events
                         if e.device_type == DeviceType.CUDA)
-        print(f'  MH {label} modes, 100 steps under torch.profiler: kernels '
-              f'{device_us / 1e3 / 100:.3f} ms per step of '
-              f'{res.elapsed_s * 1e3 / 100:.3f} ms wall', flush=True)
+        print(f'  MH {label} modes, 20 steps under torch.profiler: kernels '
+              f'{device_us / 1e3 / 20:.3f} ms per step of '
+              f'{res.elapsed_s * 1e3 / 20:.3f} ms wall', flush=True)
         if profile_path:
             with open(profile_path, 'a') as f:
-                f.write(f'\n== MH, {label} modes: 100 steps of 8 chains, '
+                f.write(f'\n== MH, {label} modes: 20 steps of 8 chains, '
                         'f64\n' + events.table(sort_by='cuda_time_total',
                                                row_limit=30) + '\n')
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the gradient path
+# ---------------------------------------------------------------------------
+
+def bwd_ops(n, K):
+    """Operations per query of the backward: the clip's selects and factor,
+    the search's compares, and per channel the derivative's Horner form and
+    product (six) and the coefficient terms (three products, four sums)."""
+    return 5 + math.ceil(math.log2(n - 1)) + 13 * K
+
+
+def abs_terms(x, c, q, g, clamp):
+    """The scale of each coefficient gradient (f64): the sum over its
+    queries of |g| (1, |t|, t^2, |t|^3)."""
+    import torch
+    x, q, g = x.double(), q.double(), g.double().abs()
+    n = x.shape[0]
+    qq = torch.clamp(q, x[0], x[-1]) if clamp else q
+    idx = torch.clamp(torch.searchsorted(x, qq, right=True) - 1, 0, n - 2)
+    t = torch.nan_to_num((qq - x[idx]).abs(), nan=0.0, posinf=0.0)[:, None]
+    g = torch.nan_to_num(g if c.ndim == 4 else g[:, None], posinf=0.0)
+    B, K, M = g.shape
+    terms = torch.stack([g, g * t, g * t * t, g * t * t * t], -1)
+    rows = c.shape[0]
+    table = (torch.arange(B, device=q.device)[:, None] % rows) * K + \
+        torch.arange(K, device=q.device)
+    flat = table[:, :, None] * (n - 1) + idx[:, None, :]
+    out = torch.zeros(rows * K * (n - 1), 4, dtype=torch.float64,
+                      device=q.device)
+    out.index_add_(0, flat.reshape(-1), terms.reshape(-1, 4))
+    return out.reshape(c.shape)
+
+
+def compare_backward(label, x, c, q, g, clamp, want_dq=True, want_dc=True,
+                     time_it=False):
+    """The backward kernel against its plain version (in f64) on the same
+    inputs: NaN and inf positions identical, dq within TOL x max|dq|,
+    dcoeffs within TOL x the sum of its terms' magnitudes; a second call
+    gives the same bits. Returns `timed`'s result when `time_it`, else the
+    max abs error."""
+    import torch
+    from victor_tpu_torch.kernels.ppoly import (ppoly_eval_backward_cuda,
+                                                ppoly_eval_backward_plain)
+
+    def kernel():
+        return ppoly_eval_backward_cuda(x, c, q, g, clamp, want_dq, want_dc)
+
+    got, again = kernel(), kernel()
+    want = ppoly_eval_backward_plain(*(a.double() for a in (x, c, q, g)),
+                                     clamp, want_dq, want_dc)
+    torch.cuda.synchronize()
+    tol = TOL[str(q.dtype)[6:]]
+    scales = (None, abs_terms(x, c, q, g, clamp) if want_dc else None)
+    err = 0.0
+    for what, k, p, k2, scale in zip(('dq', 'dcoeffs'), got, want, again,
+                                     scales):
+        if p is None:
+            check(k is None, f'{label}: no {what} when not asked for')
+            continue
+        k = k.double()
+        check(torch.equal(torch.isnan(k), torch.isnan(p)) and
+              torch.equal(torch.isinf(k), torch.isinf(p)),
+              f'{label} {what}: NaN and inf positions identical')
+        fin = torch.isfinite(p)
+        d = (k - p)[fin].abs()
+        bound = tol * (scale[fin] if scale is not None else
+                       p[fin].abs().max())
+        worst = float((d - bound).max()) if d.numel() else -1.0
+        check(worst <= 0.0, f'{label} {what}: max|kernel - plain| = '
+                            f'{float(d.max()) if d.numel() else 0.0:.3e} '
+                            f'within {tol:g} x its scale')
+        check(torch.equal(torch.nan_to_num(k2.double()), torch.nan_to_num(k)),
+              f'{label} {what}: two calls, the same bits')
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    if not time_it:
+        return err
+    out = [t for t in got if t is not None]
+    K = c.shape[1] if c.ndim == 4 else 1
+    return timed(label, err, kernel,
+                 lambda: ppoly_eval_backward_plain(x, c, q, g, clamp, want_dq,
+                                                   want_dc),
+                 nbytes(x, c, q, g, *out), q.numel() * bwd_ops(x.shape[0], K))
+
+
+def grad_out_like(q, K, gen):
+    import torch
+    shape = (q.shape[0], K, q.shape[1]) if K > 1 else tuple(q.shape)
+    return torch.randn(shape, generator=gen, device='cuda',
+                       dtype=torch.float64).to(q.dtype)
+
+
+def boss_logpost(bundle, opts_kw=None, block=None):
+    """The HMC target: the BOSS posterior over QUAD_BLOCK (or `block`) in
+    the unbounded space, the AD-resolved perf modes, as run_hmc_mcmc
+    builds it. Returns (space, logpost_y)."""
+    from victor_tpu_torch.sampling.priors import ParamSpace
+    from victor_tpu_torch.sampling.runner import unbounded_logpost
+    from victor_tpu_torch.sampling.targets import resolve_target
+    space = ParamSpace(block or QUAD_BLOCK)
+    tables, loglike = resolve_target(bundle, opts_kw, None,
+                                     gradient_free=False)
+    return space, unbounded_logpost(space, loglike, tables)
+
+
+def hmc_start(space, n_chains=8, seed=5):
+    import torch
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(seed)
+    return space.to_unbounded(space.sample_ref(gen, n_chains)), gen
+
+
+def backward_phase(bundle, gen):
+    """Phase 12a: the backward kernel against its plain version at the HMC
+    path's three lookups (captured from one gradient of the BOSS posterior
+    at 8 chains), at K = 2 and 3 over (8, 150000), at the Chebyshev-node
+    shapes and at EDGE_CASES, in f64 and f32, every comparison twice for
+    the same bits. Returns the timed results of the path's lookups by
+    label."""
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.sampling.hmc import value_and_grad
+
+    calls = []
+    real = ppoly.ppoly_eval_backward_cuda
+
+    def record(x, c, q, g, clamp=True, want_dq=True, want_dcoeffs=True):
+        # the Function's saved inputs still require grad; the comparisons
+        # below run with gradients on, where the wrappers refuse them
+        calls.append(tuple(t.detach() for t in (x, c, q, g)) +
+                     (clamp, want_dq, want_dcoeffs))
+        return real(x, c, q, g, clamp, want_dq, want_dcoeffs)
+
+    space, logpost_y = boss_logpost(bundle)
+    y0, _ = hmc_start(space)
+    ppoly.ppoly_eval_backward_cuda = record
+    try:
+        value_and_grad(logpost_y)(y0)
+    finally:
+        ppoly.ppoly_eval_backward_cuda = real
+    torch.cuda.synchronize()
+    check(len(calls) == 3, f'one gradient of the HMC target: {len(calls)} '
+                           'backward calls (3: sigma_v, v_r, xi_0)')
+    print('compare the ppoly_eval backward kernel vs plain:', flush=True)
+    results = {}
+    for x, c, q, g, clamp, want_dq, want_dc in calls:
+        label = (f'backward on the HMC path: coeffs={tuple(c.shape)} '
+                 f'q={tuple(q.shape)} clamp={clamp} dq={want_dq} '
+                 f'dcoeffs={want_dc}')
+        results[label] = compare_backward(label, x, c, q, g, clamp, want_dq,
+                                          want_dc, time_it=True)
+    for dtype in (torch.float64, torch.float32):
+        for K, shared in ((2, False), (3, False), (2, True), (3, True)):
+            x, c, q = edge_inputs(8, N_POINTS, 30, K, shared, 0, dtype, gen)
+            compare_backward(f'backward K={K} coeffs={tuple(c.shape)} '
+                             f'q={tuple(q.shape)} {str(dtype)[6:]}', x, c, q,
+                             grad_out_like(q, K, gen), True)
+        for label, B, M, n, K, shared, clamp, offset in EDGE_CASES:
+            x, c, q = edge_inputs(B, M, n, K, shared, offset, dtype, gen)
+            compare_backward(f'backward edge: {label}: q={tuple(q.shape)} '
+                             f'coeffs={tuple(c.shape)} {str(dtype)[6:]} '
+                             f'clamp={clamp}', x, c, q,
+                             grad_out_like(q, K, gen), clamp)
+    return results
+
+
+def grad_checks(bundle):
+    """Phase 12c: d lnL / d theta of each of GRAD_CASES on the card (the
+    kernels forward and backward, AD-resolved modes) at GOLDEN and
+    DISPLACED against victor_tpu's jax.grad (GRAD_GOLDENS) within 1e-8
+    relative, and the backward kernel's launches per gradient on the
+    streaming path. Returns those launches."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.sampling.targets import resolve_target
+
+    per_call = None
+    for name, kw in GRAD_CASES.items():
+        tables, loglike = resolve_target(bundle, kw or None, None,
+                                         gradient_free=False)
+        th = torch.tensor([GOLDEN, DISPLACED], dtype=torch.float64,
+                          device='cuda', requires_grad=True)
+        ppoly.LAUNCHES_BWD = 0
+        lnl, _ = loglike(tables, {k: th[:, i] for i, k in enumerate(NAMES)})
+        (grad,) = torch.autograd.grad(lnl.sum(), th)
+        torch.cuda.synchronize()
+        launches = ppoly.LAUNCHES_BWD
+        want = np.array(GRAD_GOLDENS[name])
+        got = grad.cpu().numpy()
+        # relative to each entry, or to 1e-6 of the largest where an entry
+        # is zero (sigma_v under kaiser)
+        rel = float((np.abs(got - want) / np.maximum(
+            np.abs(want), 1e-6 * np.abs(want).max())).max())
+        check(rel <= 1e-8, f'd lnL / d theta ({name}) at the golden and '
+                           f'displaced points: max relative error {rel:.3e} '
+                           f'against jax.grad (<= 1e-8); backward kernel '
+                           f'launches {launches}')
+        if name == 'streaming':
+            per_call = launches
+    check(per_call >= 3, f'backward kernel launches per gradient on the '
+                         f'streaming path: {per_call} (>= 3)')
+    return per_call
+
+
+def determinism(bundle):
+    """Phase 12b: two 10-step HMC segments on the BOSS posterior from one
+    saved state give the same bits (positions, lnp, gradients, the adapted
+    state); then the ops on the gradient path that PyTorch itself calls
+    non-deterministic (use_deterministic_algorithms, warn only), listed."""
+    import warnings
+
+    import torch
+    from victor_tpu_torch.sampling import hmc
+
+    space, logpost_y = boss_logpost(bundle)
+    y0, gen = hmc_start(space)
+    state = hmc.init_chains(logpost_y, y0, gen)
+    saved = gen.get_state()
+    runs = []
+    for _ in range(2):
+        gen.set_state(saved)
+        st, recs = hmc.run_segment(logpost_y, state, 0, 10, n_warmup=10)
+        torch.cuda.synchronize()
+        runs.append((st, recs))
+    (a, ra), (b, rb) = runs
+    same = all(torch.equal(x, y) for x, y in zip(ra, rb)) and all(
+        torch.equal(getattr(a, f), getattr(b, f))
+        for f in ('q', 'lnp', 'grad', 'aux', 'log_eps', 'welford_m2'))
+    check(same, 'two 10-step HMC segments from one saved state: the same '
+                'bits (draws, lnp, gradients, adaptation)')
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            hmc.value_and_grad(logpost_y)(y0)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split('\n')[0][:160] for w in caught
+                      if 'deterministic' in str(w.message)})
+    print(f'  ops that torch flags as non-deterministic on the gradient '
+          f'path: {flagged or "none"}', flush=True)
+
+
+def posterior_gates(out, what, mean_tol, std_tol):
+    for name in NAMES:
+        got = out['summary'][name]
+        mean, std = QUAD_MEAN[name], QUAD_STD[name]
+        check(abs(got['mean'] - mean) < mean_tol * std and
+              abs(got['std'] / std - 1.0) < std_tol,
+              f"{what} posterior {name}: mean {got['mean']:.5g} ({mean:g} "
+              f"+- {mean_tol} x {std:g}), std {got['std']:.4g} ({std:g} +- "
+              f'{std_tol:.0%})')
+
+
+def chain_files(root):
+    """The sampled columns of the eight GetDist chain files, (S, 8, 4), and
+    their parameter names in the files' order (`.paramnames`)."""
+    import numpy as np
+    with open(f'{root}.paramnames') as f:
+        names = [line.split()[0] for line in f][:len(NAMES)]
+    return np.stack([np.loadtxt(f'{root}.{i}.txt', ndmin=2)[:, 2:6]
+                     for i in range(1, 9)], axis=1), names
+
+
+def hmc_cli(cfg, tmp, seed=HMC_SEED):
+    """Phase 12d: `run --sampler hmc` with its defaults (8 chains, 300
+    warmup steps, 16 leapfrogs) on QUAD_BLOCK, rhat_stop 0.01, at most
+    HMC_DRAWS draws, generator seed `seed`. Returns (backward launches,
+    leapfrogs, seconds, draws, R-1)."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import dispersion, ppoly
+    from victor_tpu_torch.sampling.diagnostics import (effective_sample_size,
+                                                       split_rhat)
+
+    run_cfg = {**cfg, 'params': QUAD_BLOCK,
+               'sampler': {'n_chains': 8, 'rhat_stop': 0.01}}
+    path = write_yaml(run_cfg, os.path.join(tmp, f'boss_hmc_{seed}.yaml'))
+    root = os.path.join(tmp, 'chains', f'hmc_{seed}')
+    ppoly.LAUNCHES = ppoly.LAUNCHES_BWD = dispersion.LAUNCHES = 0
+    out = cli_json(['run', path, '--sampler', 'hmc', '--samples',
+                    str(HMC_DRAWS), '--seed', str(seed), '--output', root])
+    torch.cuda.synchronize()
+    launches = (ppoly.LAUNCHES_BWD, ppoly.LAUNCHES, dispersion.LAUNCHES)
+    # one forward and one backward lookup of each of three splines per
+    # gradient; the first is the chains' initial point
+    leapfrogs = launches[0] // 3 - 1
+    chains, names = chain_files(root)
+    n = out['n_samples']
+    check(chains.shape == (n, 8, 4) and np.isfinite(chains).all(),
+          f'HMC chains: {chains.shape}, finite')
+    rm1 = float(np.max(split_rhat(chains) - 1))
+    with open(f'{root}.progress') as f:        # R-1 after each segment
+        trace = [row.split()[4] for row in f if not row.startswith('#')]
+    print(f'  HMC seed {seed}: R-1 after each segment {trace}; per parameter '
+          f'{dict(zip(names, np.round(split_rhat(chains) - 1, 5)))}, ESS '
+          f'{dict(zip(names, np.round(effective_sample_size(chains), 1)))}',
+          flush=True)
+    print(f"  HMC (8 chains, AD modes): {n} draws after 300 warmup steps, "
+          f"max R-1 {rm1:.6f}, acceptance {out['acceptance']}, "
+          f"{out['elapsed_s']} s, {leapfrogs} leapfrogs "
+          f"({leapfrogs / out['elapsed_s']:.1f} leapfrogs/s, "
+          f'{leapfrogs / (300 + n):.2f} per step); kernel launches: '
+          f'backward {launches[0]}, forward {launches[1]}', flush=True)
+    check(rm1 < 0.01, f'HMC converged: max R-1 {rm1:.5f} < 0.01 within '
+                      f'{HMC_DRAWS} draws ({n})')
+    posterior_gates(out, 'HMC', 0.2, 0.15)
+    check(launches[0] > 0 and launches[1] > 0 and launches[2] == 0,
+          'the HMC path launched the ppoly_eval kernel forward and backward, '
+          'no dispersion_final (streaming model)')
+    return launches[0], leapfrogs, out['elapsed_s'], n, rm1
+
+
+def nuts_cli(cfg, tmp, warmup=NUTS_WARMUP, samples=NUTS_SAMPLES):
+    """Phase 12e: `run --sampler nuts` with `warmup` steps and at most
+    `samples` draws (max_depth 6 and rhat_stop 0.01 by default)."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.sampling import nuts
+
+    run_cfg = {**cfg, 'params': QUAD_BLOCK, 'sampler': {'n_chains': 8}}
+    path = write_yaml(run_cfg, os.path.join(tmp, 'boss_nuts.yaml'))
+    root = os.path.join(tmp, 'chains', 'nuts')
+    ppoly.LAUNCHES_BWD = 0
+    nuts.STATS.update(steps=0, doublings=0, accept_stat=0.0)
+    out = cli_json(['run', path, '--sampler', 'nuts', '--warmup', str(warmup),
+                    '--samples', str(samples), '--output', root])
+    torch.cuda.synchronize()
+    chains, names = chain_files(root)
+    box = np.array([[QUAD_BLOCK[k]['prior']['min'],
+                     QUAD_BLOCK[k]['prior']['max']] for k in names])
+    inside = bool(((chains >= box[:, 0]) & (chains <= box[:, 1])).all())
+    check(np.isfinite(chains).all() and inside,
+          f'NUTS chains {chains.shape}: every draw finite and inside the '
+          'prior box')
+    stats = nuts.STATS
+    leapfrogs = ppoly.LAUNCHES_BWD // 3 - 1
+    print(f"  NUTS (8 chains, max_depth 6): {out['n_samples']} draws after "
+          f"{warmup} warmup steps, acceptance {out['acceptance']}, mean tree depth "
+          f"{stats['doublings'] / stats['steps']:.3f}, mean acceptance "
+          f"statistic {float(stats['accept_stat']) / stats['steps']:.4f}, "
+          f"{out['elapsed_s']} s, {leapfrogs} leapfrogs of the batch "
+          f"({leapfrogs / out['elapsed_s']:.1f}/s), R-hat "
+          f"{ {k: v['rhat'] for k, v in out['summary'].items()} }",
+          flush=True)
+    posterior_gates(out, 'NUTS', 0.3, 0.25)
+
+
+def start_nuts_child(tmp):
+    """Phase 12e in a process of its own (`--nuts-child`), started beside
+    phase 12d: both are host-bound, and the card and the host's cores have
+    room for two. Returns the Popen; `finish_nuts_child` collects it."""
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--nuts-child', tmp],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+
+
+def finish_nuts_child(proc, timeout):
+    """Wait for the phase-12e process, print what it printed, and fail if
+    it failed."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        print(out, flush=True)
+        raise RuntimeError('chip_smoke: the NUTS phase did not finish within '
+                           f'{timeout} s')
+    print(out.rstrip(), flush=True)
+    check(proc.returncode == 0,
+          f'the NUTS phase (its own process) exited {proc.returncode}')
+
+
+def hmc_rates(bundle, card, profile_path):
+    """Phase 12d's profile and 12f (information): leapfrogs per second of
+    8 HMC chains on the BOSS posterior with streaming_eval 'exact' (the AD
+    default), 'fast' and 'exact' again, 10 steps each after 3 (a leapfrog
+    costs the same whatever the step size); then the kernels' device time
+    per leapfrog of 2 more 'exact' steps under torch.profiler (its
+    post-processing grows with the ~2,300 operations of each leapfrog)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from victor_tpu_torch.sampling import hmc
+
+    for mode in ('exact', 'fast', 'exact'):
+        space, logpost_y = boss_logpost(bundle, {'streaming_eval': mode})
+        calls = [0]
+
+        def counted(y):
+            calls[0] += 1
+            return logpost_y(y)
+        y0, gen = hmc_start(space)
+        st = hmc.init_chains(counted, y0, gen)
+        st, _ = hmc.run_segment(counted, st, 0, 3, n_warmup=60)
+        torch.cuda.synchronize()
+        calls[0] = 0
+        t0 = time.perf_counter()
+        st, _ = hmc.run_segment(counted, st, 3, 10, n_warmup=60)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        print(f"HMC leapfrogs/s, streaming_eval '{mode}' under AD (8 chains, "
+              f'10 steps, {calls[0]} leapfrogs): {calls[0] / dt:.1f} '
+              f'({1e3 * dt / calls[0]:.2f} ms per leapfrog) on {card}',
+              flush=True)
+    calls[0] = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        hmc.run_segment(counted, st, 13, 2, n_warmup=60)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    events = prof.key_averages()
+    device_us = sum(e.device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA)
+    bwd_us = sum(e.device_time_total for e in events
+                 if e.device_type == DeviceType.CUDA and 'ppoly_bwd' in e.key)
+    print(f'  HMC under torch.profiler (streaming_eval exact, {calls[0]} '
+          f'leapfrogs): kernels {device_us / 1e3 / calls[0]:.3f} ms per '
+          f'leapfrog (the backward kernel {bwd_us / 1e3 / calls[0]:.3f} ms) '
+          f'of {1e3 * dt / calls[0]:.3f} ms wall', flush=True)
+    if profile_path:
+        with open(profile_path, 'a') as f:
+            f.write(f'\n== HMC, 2 steps of 8 chains, {calls[0]} leapfrogs, '
+                    'f64\n' + events.table(sort_by='cuda_time_total',
+                                           row_limit=30) + '\n')
 
 
 def kernel_row(name, source, replaces, launches, result, dtype):
@@ -1228,8 +1735,12 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--profile', metavar='PATH',
                         help='write a torch.profiler summary of one batch of '
-                             'each timed configuration and of 100 MH steps '
+                             'each timed configuration and of 20 MH steps '
                              'to PATH')
+    parser.add_argument('--nuts-child', metavar='DIR',
+                        help='run phase 12e (NUTS through the CLI) alone, '
+                             'writing into DIR; the full run starts this '
+                             'itself beside phase 12d')
     args = parser.parse_args()
 
     import dataclasses
@@ -1253,6 +1764,10 @@ def main() -> int:
     from victor_tpu_torch.io.tables import build_tables
     from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.likelihood.batched import make_batched_loglike
+
+    if args.nuts_child:
+        nuts_cli(load_config(), args.nuts_child)
+        return 0
 
     # ---- 2. build the kernels ----
     build_kernels()
@@ -1370,6 +1885,30 @@ def main() -> int:
         joint_fit(cfg, bundle, tmp)
     mh_step_rates(bundle, card, args.profile)
 
+    # ---- 12. the gradient path ----
+    print('gradients: the backward kernel', flush=True)
+    bwd_results = backward_phase(bundle, gen)
+    print('gradients: determinism', flush=True)
+    determinism(bundle)
+    print('gradients: d lnL / d theta against jax.grad', flush=True)
+    grad_checks(bundle)
+    with tempfile.TemporaryDirectory() as tmp:
+        print('sampling: HMC through the CLI run, NUTS beside it', flush=True)
+        t0 = time.perf_counter()
+        child = start_nuts_child(tmp)
+        try:
+            hmc_launches, leapfrogs, hmc_s, hmc_draws, hmc_rm1 = hmc_cli(
+                cfg, tmp)
+            print(f'  HMC phase: {time.perf_counter() - t0:.2f} s', flush=True)
+            finish_nuts_child(child, timeout=600)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        print(f'  HMC and NUTS phases: {time.perf_counter() - t0:.2f} s',
+              flush=True)
+    hmc_rates(bundle, card, args.profile)
+
     f64 = torch.float64
     print(f'card: {card}', flush=True)
     print(json.dumps({'kernels': [
@@ -1386,7 +1925,14 @@ def main() -> int:
         kernel_row(f'ppoly_eval, MH sampler ({mh_steps} steps of 8 chains, '
                    'default modes)', 'ppoly_eval.cu',
                    'victor_tpu/ops/splines.py:537', mh_launches, mh_result,
-                   f64)]}), flush=True)
+                   f64)] + [
+        # neither TPU kernel had a VJP: the backward computes jax.grad of
+        # victor_tpu's ppoly_eval, to which `replaces` points
+        kernel_row(f'ppoly_eval backward, HMC sampler ({label.split(": ")[1]}'
+                   f'; launches: all three lookups of the {hmc_draws + 300}'
+                   f'-step run)', 'ppoly_eval.cu',
+                   'victor_tpu/ops/splines.py:205', hmc_launches, res, f64)
+        for label, res in bwd_results.items()]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

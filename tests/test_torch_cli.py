@@ -211,8 +211,7 @@ def test_run_ensemble_and_cobaya_nesting(sampling_cfg, tmp_path, capsys):
     assert out['sampler'] == 'mh' and out['n_samples'] <= 6
 
 
-@pytest.mark.parametrize('how', ['hmc', 'nuts', 'smc', 'ns', 'minimize',
-                                 'polychord'])
+@pytest.mark.parametrize('how', ['smc', 'ns', 'minimize', 'polychord'])
 def test_unported_samplers_exit(sampling_cfg, tmp_path, how):
     cfg = copy.deepcopy(sampling_cfg)
     args = []

@@ -209,6 +209,66 @@ def test_smem_bytes_without_allocating():
     assert ppoly._smem_bytes(1024, 1, 8) <= ppoly.SMEM_LIMIT
 
 
+# the backward kernel as ppoly_eval_backward_geometry reports it on an H100
+# SXM: 132 SMs, 256 threads (8 warps) per block, 4 blocks per SM aimed at
+H100_BWD = ppoly.BackwardGeometry(132, 256, 8, 4)
+
+
+@pytest.mark.parametrize('B,M,K,n', [(8, 150_000, 1, 31), (8, 150_000, 2, 30),
+                                     (64, 150_000, 1, 31), (1, 9_600_000, 1, 25),
+                                     (8, 49, 1, 31), (16, 1, 1, 31)])
+def test_backward_plan_covers_every_query_in_about_a_wave(B, M, K, n):
+    """Chunks of whole tiles cover each row once, and a call that has the
+    work for it runs about SMs x 4 chunks (one partial table each); every
+    warp keeps its own accumulators at the path's table sizes."""
+    plan = ppoly.backward_plan(B, M, K, n, 8, True, H100_BWD)
+    tile = H100_BWD.threads * plan.tiles
+    assert (plan.chunks - 1) * tile < M <= plan.chunks * tile
+    wave = H100_BWD.sms * H100_BWD.blocks_per_sm
+    if B * -(-M // H100_BWD.threads) >= wave:
+        assert abs(B * plan.chunks - wave) < wave / plan.tiles + B
+    else:
+        assert plan.tiles == 1
+    assert plan.copies == H100_BWD.warps
+    assert plan.smem == ppoly._smem_bytes(n, K, 8) + 8 * 4 * K * (n - 1) * 8
+
+
+def test_backward_plan_shares_accumulators_when_shared_memory_is_short():
+    """At 1,024 knots one copy of the sums no longer fits eight times: the
+    warps share fewer copies (one, taking turns), past 48 KB of dynamic
+    shared memory; a call without dcoeffs keeps only the table."""
+    big = ppoly.backward_plan(16, 3000, 1, 1024, 8, True, H100_BWD)
+    assert big.copies == 1
+    assert big.smem == ppoly._smem_bytes(1024, 1, 8) + 4 * 1023 * 8 > 48 * 1024
+    mid = ppoly.backward_plan(16, 3000, 1, 200, 8, True, H100_BWD)
+    assert 1 < mid.copies < H100_BWD.warps
+    assert H100_BWD.warps % mid.copies == 0
+    assert mid.smem <= ppoly.BWD_SMEM_BUDGET
+    dq_only = ppoly.backward_plan(16, 3000, 1, 1024, 8, False, H100_BWD)
+    assert dq_only.smem == ppoly._smem_bytes(1024, 1, 8)
+
+
+@pytest.mark.parametrize('case,match', [
+    ('cpu', 'CUDA'), ('grad_shape', 'grad_out must be'),
+    ('grad_dtype', 'grad_out must be'), ('grad_strides', 'contiguous'),
+    ('coeff_rows', 'coeffs must be')])
+def test_backward_wrapper_refuses_on_cpu(case, match):
+    """The backward's checks run before any launch, on CPU tensors too."""
+    f64 = torch.float64
+    x = torch.linspace(0.0, 1.0, 30, dtype=f64)
+    c = torch.zeros(2, 29, 4, dtype=f64)
+    q = torch.zeros(2, 7, dtype=f64)
+    g = torch.zeros(2, 7, dtype=f64)
+    bad = {'cpu': (x, c, q, g), 'grad_shape': (x, c, q, g[:, :6]),
+           'grad_dtype': (x, c, q, g.float()),
+           'grad_strides': (x, c, q, torch.zeros(7, 2, dtype=f64).t()),
+           'coeff_rows': (x, torch.zeros(3, 29, 4, dtype=f64), q, g)}[case]
+    before = ppoly.LAUNCHES_BWD
+    with pytest.raises(ValueError, match=match):
+        ppoly.ppoly_eval_backward_cuda(*bad)
+    assert ppoly.LAUNCHES_BWD == before
+
+
 @pytest.mark.parametrize('case,error,match', [
     ('cpu', ValueError, 'CUDA'),
     ('grad', RuntimeError, 'no backward'),
@@ -447,10 +507,8 @@ def _edge_inputs(rng, B, M, n, K, shared, offset):
     return x, (c if K > 1 else c[:, 0]), base
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-12),
-                                       (torch.float32, 1e-5)])
-@pytest.mark.parametrize('B,M,n,K,shared,offset', [
+# (B, M, knots, channels, shared table, storage offset of q)
+EDGE_SHAPES = [
     (16, 3000, 31, 1, False, 1),        # q one element into its storage
     (16, 3000, 30, 4, False, 1),
     (16, 3001, 31, 1, False, 0),        # odd M
@@ -469,7 +527,13 @@ def _edge_inputs(rng, B, M, n, K, shared, offset):
     (16, 3000, 30, 2, True, 0),
     (16, 3000, 30, 3, False, 0),
     (16, 3000, 30, 4, True, 0),
-])
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize('B,M,n,K,shared,offset', EDGE_SHAPES)
 @pytest.mark.parametrize('clamp', [True, False])
 def test_kernel_edge_shapes_match_plain_on_card(cuda_device, dtype, tol, B,
                                                 M, n, K, shared, offset,
@@ -502,6 +566,127 @@ def test_kernel_edge_shapes_match_plain_on_card(cuda_device, dtype, tol, B,
     if offset:
         aligned = ppoly.ppoly_eval_cuda(x, c, q.clone(), clamp)
         assert torch.equal(torch.nan_to_num(aligned), torch.nan_to_num(got))
+
+
+def _abs_terms(x, c, q, g, clamp):
+    """The coefficient gradient's scale, in f64: the sum over each table
+    entry's queries of |g| (1, |t|, t^2, |t|^3)."""
+    x, q, g = x.double(), q.double(), g.double().abs()
+    n = x.shape[0]
+    qq = torch.clamp(q, x[0], x[-1]) if clamp else q
+    idx = torch.clamp(torch.searchsorted(x, qq, right=True) - 1, 0, n - 2)
+    t = (qq - x[idx]).abs()[:, None]
+    g = g if c.ndim == 4 else g[:, None]                  # (B, K, M)
+    B, K, M = g.shape
+    terms = torch.stack([g, g * t, g * t * t, g * t * t * t], -1)
+    rows = c.shape[0]
+    table = (torch.arange(B, device=q.device)[:, None] % rows) * K + \
+        torch.arange(K, device=q.device)
+    flat = table[:, :, None] * (n - 1) + idx[:, None, :]
+    out = torch.zeros(rows * K * (n - 1), 4, dtype=torch.float64,
+                      device=q.device)
+    out.index_add_(0, flat.reshape(-1), terms.reshape(-1, 4))
+    return out.reshape(c.shape)
+
+
+def _check_grads(got, want, scale_dq, scale_dc, tol):
+    """dq within tol x max|dq|, dcoeffs within tol x the sum of its terms'
+    magnitudes, element by element; NaN and inf positions identical."""
+    for g, w, scale in ((got[0], want[0], scale_dq), (got[1], want[1],
+                                                      scale_dc)):
+        g, w = g.double(), w.double()
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        assert torch.equal(torch.isinf(g), torch.isinf(w))
+        fin = torch.isfinite(w)
+        bound = tol * (scale[fin] if torch.is_tensor(scale) else scale)
+        assert bool(((g - w)[fin].abs() <= bound).all()), \
+            float(((g - w)[fin].abs() - bound).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize('B,M,n,K,shared,offset', EDGE_SHAPES + [
+    (8, 150_000, 25, 1, True, 0),       # the HMC path's sigma_v lookup
+    (8, 150_000, 31, 1, False, 0),      # its v_r and xi_0 lookups
+    (8, 150_000, 30, 2, False, 0)])
+@pytest.mark.parametrize('clamp', [True, False])
+def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, tol, B, M,
+                                               n, K, shared, offset, clamp):
+    """The backward kernel against its plain version at the forward's edge
+    shapes and the HMC path's: dq and dcoeffs, NaN and inf positions
+    identical, the f32 kernel held to the plain version in f64; two calls
+    give the same bits (no atomics), and dq-only and dcoeffs-only calls the
+    same values as a full one."""
+    rng = np.random.default_rng(3 * B + M + n + K + offset)
+    x_np, c_np, base_np = _edge_inputs(rng, B, M, n, K, shared, offset)
+    g_np = rng.standard_normal((B, K, M) if K > 1 else (B, M))
+    x, c, base, g = (torch.as_tensor(a, device=cuda_device).to(dtype)
+                     for a in (x_np, c_np, base_np, g_np))
+    q = base[offset:].view(B, M)
+    before = ppoly.LAUNCHES_BWD
+    got = ppoly.ppoly_eval_backward_cuda(x, c, q, g, clamp)
+    again = ppoly.ppoly_eval_backward_cuda(x, c, q, g, clamp)
+    dq_only = ppoly.ppoly_eval_backward_cuda(x, c, q, g, clamp,
+                                             want_dcoeffs=False)
+    dc_only = ppoly.ppoly_eval_backward_cuda(x, c, q, g, clamp, want_dq=False)
+    assert ppoly.LAUNCHES_BWD == before + 4
+    assert dq_only[1] is None and dc_only[0] is None
+    want = ppoly.ppoly_eval_backward_plain(
+        *(a.double() for a in (x, c, q, g)), clamp)
+    torch.cuda.synchronize()
+    assert got[0].shape == q.shape and got[1].shape == c.shape
+    fin = torch.isfinite(want[0])
+    _check_grads(got, want, float(want[0][fin].abs().max()),
+                 _abs_terms(x, c, q, g, clamp), tol)
+    for a, b in ((got[0], again[0]), (got[1], again[1]), (got[0], dq_only[0]),
+                 (got[1], dc_only[1])):
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.cuda
+def test_autograd_runs_the_backward_kernel_through_ops(cuda_device):
+    """ops.splines on CUDA tensors that require grad: ppoly_eval with
+    per-row and shared tables, ppoly_eval_multi and Bicubic2D.ev each
+    launch the backward kernel once per lookup, and their gradients agree
+    with the same calls on the CPU (the plain backward)."""
+    rng = np.random.default_rng(21)
+    x = _knots(rng, 25)
+    c = _coeffs(x, rng.standard_normal((4, 25)))
+    cm = _coeffs(x, rng.standard_normal((4, 2, 25)))
+    q = _queries(rng, x, (4, 7, 30))
+    q[~np.isfinite(q)] = 50.0
+    r = np.sort(rng.uniform(1.0, 120.0, 25))
+    mu = np.linspace(0.0, 1.0, 21)
+    z = sum(np.outer(np.sin(r / (10.0 + 7 * k)), mu ** k) for k in range(3))
+    surf = tsp.Bicubic2D.build(r, mu, z)
+    p = rng.uniform(0.0, 1.0, q.shape)
+    calls = [lambda dev, s, qq, cc: tsp.ppoly_eval(_t(x).to(dev), cc, qq),
+             lambda dev, s, qq, cc: tsp.ppoly_eval(_t(x).to(dev), cc[0], qq,
+                                                   clamp=False),
+             lambda dev, s, qq, cc: tsp.ppoly_eval_multi(
+                 _t(x).to(dev), _t(cm).to(dev), qq.reshape(4, -1)),
+             lambda dev, s, qq, cc: s.ev(qq, _t(p).to(dev))]
+    gpu_surf = surf.to(cuda_device, torch.float64)
+    # Bicubic2D.ev: one lookup in q per rank takes a gradient, none in p
+    for call, lookups in zip(calls, (1, 1, 1, surf.cu.shape[0])):
+        grads = {}
+        for dev, s in ((cuda_device, gpu_surf), ('cpu', surf)):
+            qq = _t(q).to(dev).requires_grad_()
+            cc = _t(c).to(dev).requires_grad_()
+            out = call(dev, s, qq, cc)
+            weight = torch.sin(torch.arange(out.numel(), dtype=out.dtype,
+                                            device=dev)).reshape(out.shape)
+            before = ppoly.LAUNCHES_BWD
+            (out * weight).sum().backward()
+            grads[str(dev)] = [qq.grad] + ([cc.grad] if cc.grad is not None
+                                           else [])
+            if dev != 'cpu':
+                assert ppoly.LAUNCHES_BWD == before + lookups
+        for got, want in zip(grads[str(cuda_device)], grads['cpu']):
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=0, atol=1e-12 * float(
+                                           want.abs().max()), equal_nan=True)
 
 
 @pytest.mark.cuda

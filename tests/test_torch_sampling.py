@@ -585,21 +585,19 @@ class TestRunners:
                                      covmat=covmat[0], **kw)
 
     def test_mh_is_the_default_algorithm(self):
-        """With no `algorithm`, run_hmc_mcmc runs MH: the only sampler the
-        port has until the backward-kernel slice."""
+        """With no `algorithm`, run_hmc_mcmc runs HMC, as victor_tpu does
+        (MH was the port's default until its gradients came); MH is asked
+        for by name and gives other draws."""
         kw = dict(n_chains=2, n_warmup=3, n_samples=3, seed=5,
                   segment_steps=6, device='cpu')
         res = trunner.run_hmc_mcmc(gauss_loglike, GAUSS_BLOCK, **kw)
+        hmc = trunner.run_hmc_mcmc(gauss_loglike, GAUSS_BLOCK,
+                                   algorithm='hmc', **kw)
         mh = trunner.run_hmc_mcmc(gauss_loglike, GAUSS_BLOCK,
                                   algorithm='mh', **kw)
-        np.testing.assert_array_equal(res.chain, mh.chain)
+        np.testing.assert_array_equal(res.chain, hmc.chain)
+        assert not np.array_equal(res.chain, mh.chain)
         assert res.chain.shape == (3, 2, 2)
-
-    def test_gradient_samplers_are_not_ported(self):
-        for algorithm in ('hmc', 'nuts'):
-            with pytest.raises(NotImplementedError, match='later|backward'):
-                trunner.run_hmc_mcmc(gauss_loglike, GAUSS_BLOCK,
-                                     algorithm=algorithm, device='cpu')
 
     def test_default_device_is_the_card(self):
         if torch.cuda.is_available():

@@ -243,5 +243,11 @@ print(' '.join(names))
         '__main__', 'utils.logging', 'likelihood.multiquantile',
         'sampling.priors', 'sampling.diagnostics', 'sampling.ensemble',
         'sampling.chains', 'sampling.targets', 'sampling.hmc', 'sampling.mh',
-        'sampling.runner')} <= names
-    assert len(names) >= 27
+        'sampling.nuts', 'sampling.runner', 'kernels.ppoly')} <= names
+    assert len(names) >= 28
+    # the backward kernel is built from the forward's source, and launched
+    # from the module imported above
+    with open(os.path.join(REPO, 'victor_tpu_torch', 'kernels', 'csrc',
+                           'ppoly_eval.cu')) as f:
+        src = f.read()
+    assert 'ppoly_eval_backward_f64' in src and 'ppoly_bwd_reduce' in src

@@ -9,12 +9,12 @@ defaults and JSON output and the arguments of the samplers ported so far,
 plus `--device` (default `cuda`; `--device cpu` runs on the host). The
 YAML layout extends the reference's cobaya config: `model:`/`data:` blocks (reference schema), a `params:` block
 (cobaya vocabulary, config/boss_cobaya_config.yaml:50-97), and an optional
-`sampler:` block (kind — default mh, the cobaya algorithm class — or
-ensemble; n_chains, n_samples, rhat_stop, seed, output, checkpoint, covmat;
-cobaya's own `mcmc:` nesting maps to mh). A top-level `quantiles:` list is a
-multi-quantile joint fit. The samplers hmc, nuts, smc and ns, and cobaya's
-`minimize:` and `polychord:` nestings, are not ported yet and exit with a
-message.
+`sampler:` block (kind — default mh, the cobaya algorithm class — hmc,
+nuts or ensemble; n_chains, n_samples, n_warmup, n_leapfrog, max_depth,
+rhat_stop, seed, output, checkpoint, covmat; cobaya's own `mcmc:` nesting
+maps to mh). A top-level `quantiles:` list is a multi-quantile joint fit.
+The samplers smc and ns, and cobaya's `minimize:` and `polychord:`
+nestings, are not ported yet and exit with a message.
 """
 
 from __future__ import annotations
@@ -24,8 +24,13 @@ import json
 import sys
 import time
 
-_NOT_PORTED = ("is not ported yet: victor_tpu_torch runs the gradient-free "
-               "samplers mh (the default) and ensemble; use victor_tpu for it")
+_NOT_PORTED = ("is not ported yet: victor_tpu_torch runs the samplers mh "
+               "(the default), hmc, nuts and ensemble; use victor_tpu for it")
+# (warmup, draws, segment length) of each chain sampler when the config and
+# the command line give none: MH's draws are one likelihood call each but
+# mix slowly; NUTS's draw count is a cap under its default rhat_stop
+_CHAIN_DEFAULTS = {'mh': (2000, 8000, 2500), 'hmc': (300, 700, 100),
+                   'nuts': (300, 4000, 100)}
 
 
 def _load(config_path):
@@ -218,32 +223,46 @@ def cmd_run(args):
                 "sampler.kind: ensemble (or --sampler ensemble) to keep "
                 'the old ensemble behavior, or retune with mh keys '
                 '(n_chains/n_samples/n_warmup)', ', '.join(ensemble_only))
-    if kind not in ('mh', 'ensemble'):
+    if kind not in ('mh', 'hmc', 'nuts', 'ensemble'):
         sys.exit(f'sampler {kind!r} {_NOT_PORTED}')
     bundle = _build_bundle(cfg, args.device)
 
-    if kind == 'mh':
+    if kind in _CHAIN_DEFAULTS:
         n_chains = int(sampler.get('n_chains', args.chains))
-        # random-walk Metropolis draws are one likelihood eval each but mix
-        # slowly, so its defaults are long and its segments long
+        warmup, samples, segment = _CHAIN_DEFAULTS[kind]
         n_warmup = args.warmup if args.warmup is not None else \
-            int(sampler.get('n_warmup', 2000))
+            int(sampler.get('n_warmup', warmup))
         n_samples = args.samples if args.samples is not None else \
-            int(sampler.get('n_samples', 8000))
+            int(sampler.get('n_samples', samples))
         ckpt = sampler.get('checkpoint', args.checkpoint)
+        if args.resume and ckpt and os.path.isfile(ckpt):
+            # a resumed run keeps the checkpoint's chain count, and the
+            # GetDist files are split by it
+            with np.load(ckpt, allow_pickle=False) as z:
+                if 'hmc_q' in z.files:
+                    n_chains = int(z['hmc_q'].shape[0])
         result = run_hmc_mcmc(
             bundle, params_block,
             n_chains=n_chains,
             n_warmup=n_warmup,
             n_samples=n_samples,
-            segment_steps=int(sampler.get('segment_steps', 2500)),
+            n_leapfrog=int(sampler.get('n_leapfrog', args.leapfrog)),
+            segment_steps=int(sampler.get('segment_steps', segment)),
             seed=seed,
             algorithm=kind,
+            # NUTS depth 6 by default, victor_tpu's measured speed and
+            # robustness point with the dense-mass warmup; hmc and mh
+            # ignore it
+            max_depth=int(sampler.get(
+                'max_depth', args.max_depth if args.max_depth is not None
+                else (6 if kind == 'nuts' else 8))),
             covmat=sampler.get('covmat', args.covmat),
             # cobaya's Rminus1_stop semantics: n_samples becomes a cap and
-            # the run stops once split-R-1 clears the threshold
+            # the run stops once split-R-1 clears the threshold; NUTS stops
+            # at 0.01 unless told otherwise
             rhat_stop=(float(sampler['rhat_stop'])
-                       if 'rhat_stop' in sampler else None),
+                       if 'rhat_stop' in sampler
+                       else (0.01 if kind == 'nuts' else None)),
             output=out_root,
             checkpoint=ckpt,
             resume=args.resume,
@@ -460,21 +479,29 @@ def main(argv=None):
                     choices=['ensemble', 'hmc', 'nuts', 'mh', 'smc', 'ns'],
                     default=None,
                     help='default mh (adaptive random-walk Metropolis — '
-                         'the reference/cobaya algorithm class); ensemble '
+                         'the reference/cobaya algorithm class); hmc and '
+                         'nuts (gradients through the likelihood); ensemble '
                          '(differential-evolution move) exits nonzero if '
-                         'unconverged; hmc, nuts, smc and ns are not ported '
-                         'yet')
+                         'unconverged; smc and ns are not ported yet')
+    pr.add_argument('--max-depth', type=int, default=None,
+                    help='NUTS maximum tree depth (sampler=nuts; default 6 '
+                         '— the measured speed/robustness point with the '
+                         'dense-mass warmup; raise for curved posteriors)')
     pr.add_argument('--chains', type=int, default=8,
-                    help='chain count (sampler=mh)')
+                    help='chain count (sampler=mh, hmc, nuts)')
     pr.add_argument('--warmup', type=int, default=None,
-                    help='warmup steps (default 2000 for --sampler mh)')
+                    help='warmup steps (default 300; 2000 for --sampler mh)')
     pr.add_argument('--samples', type=int, default=None,
-                    help='posterior draws per chain (default 8000 for '
-                         '--sampler mh; a cap under rhat_stop)')
+                    help='posterior draws per chain (default 700; 8000 for '
+                         '--sampler mh, 4000 for --sampler nuts; a cap '
+                         'under rhat_stop)')
+    pr.add_argument('--leapfrog', type=int, default=16,
+                    help='HMC trajectory length, jittered per step over '
+                         '[n/2, n] (sampler=hmc)')
     pr.add_argument('--covmat', default=None,
                     help='cobaya-format .covmat file seeding the proposal '
-                         'covariance (mh); every run with --output writes '
-                         '<output>.covmat back')
+                         'covariance (mh) / mass matrix (hmc, nuts); every '
+                         'run with --output writes <output>.covmat back')
     pr.add_argument('--seed', type=int, default=None,
                     help='generator seed (overrides the config sampler.seed)')
     pr.add_argument('--output', default=None)

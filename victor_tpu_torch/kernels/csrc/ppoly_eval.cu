@@ -84,6 +84,9 @@
 //
 // Shared memory of one staged table (the wrapper's _smem_bytes): K channels
 // of 4(n-1) coefficients, S = max(2 * first step, 1) search keys, x[n-1].
+//
+// The backward (ppoly_bwd_chunks, ppoly_bwd_reduce) follows the forward's
+// launch code, with its own design note.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -376,6 +379,274 @@ int launch(const void* x, const void* coeffs, const void* q, void* out,
     }
 }
 
+// ---------------------------------------------------------------------------
+// The backward: the vector-Jacobian product of the function above.
+//
+// Neither Pallas kernel of the JAX package had a VJP: victor_tpu
+// differentiates ppoly_eval (its 'gather' strategy on the CPU, the masksum on
+// the TPU) with XLA's autodiff. This is that gradient for the kernel above,
+// written by hand. Given grad_out g (B, K, M) it returns
+//
+//   dq[b, m]   = sum_k g[b,k,m] * ((3 c3 t + 2 c2) t + c1) * f(q)
+//   dc[r,k,i]  = sum over the queries m of the rows b that read table r with
+//                interval i of g[b,k,m] * (1, t, t^2, t^3)
+//
+// with c = coeffs[r, k, i], t = qq - x[i] as in the forward, f = 1 inside
+// (x[0], x[n-1]), 0.5 at either bound (jnp.clip's derivative, JAX's max and
+// min halving at ties), 0 outside, and f = 1 without clamp. A NaN query
+// takes the last interval, n-2, where torch.searchsorted and JAX's
+// searchsorted (NaN sorts last) put it and its NaN reaches dc[.., n-2, 1..3]
+// (the forward's search leaves it in interval 0, where the value is NaN
+// all the same). Rows that share one table (Bc = 1) all sum into it.
+//
+// Determinism. The same inputs give the same bits on every run: no floating-
+// point atomics anywhere. Every sum runs in a fixed order:
+// * Within a warp, the lanes whose queries fall in one interval find each
+//   other with __match_any_sync and each sums the group's terms by shuffles
+//   in ascending lane order; the group's lowest lane adds the sum into the
+//   warp's copy of the accumulators (a plain read-modify-write: distinct
+//   groups touch distinct intervals). A warp walks its queries in a fixed
+//   order, so each copy is a fixed sequence of additions.
+// * Warps share copies only when shared memory is short (n near 1,024: one
+//   copy of K*4(n-1) sums no longer fits eight times). Warps that share a
+//   copy take fixed turns, each turn closed by __syncthreads.
+// * A block owns one chunk of tiles of one row. At its end it adds its
+//   copies in copy order and writes the chunk's partial sums to global
+//   memory; a second kernel adds each table's partials in chunk order (32
+//   strided lanes per element, then the 32 lane sums in order).
+//
+// Bound: bytes, as the forward: q and g read, dq written ((2 + K) * 8 B per
+// query in f64), plus the partials (chunks x K*4(n-1), written and read
+// once). Per query the reduction costs a warp match and up to 32 shuffle
+// rounds when every lane shares an interval, so this simple design does not
+// aim at the bound; its time stands in PERF.md.
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+// resident blocks per SM that the wrapper's chunking aims to fill
+constexpr int BWD_BLOCKS_PER_SM = 4;
+constexpr int RED_LANES = 32;       // chunk lanes per element in the reduce
+
+template <typename T> __device__ __forceinline__ T mul_rn(T a, T b);
+template <> __device__ __forceinline__ double mul_rn<double>(double a,
+                                                             double b) {
+    return __dmul_rn(a, b);
+}
+template <> __device__ __forceinline__ float mul_rn<float>(float a, float b) {
+    return __fmul_rn(a, b);
+}
+
+// One chunk per block: `tiles` tiles of BWD_THREADS queries of one row, one
+// query per thread per tile. dq is skipped when null; DC: the coefficient
+// sums are wanted, written to partial[chunk] (K * 4(n-1) values).
+template <typename T, int K, bool DC>
+__global__ void __launch_bounds__(BWD_THREADS)
+ppoly_bwd_chunks(const T* __restrict__ x, const T* __restrict__ coeffs,
+                 const T* __restrict__ q, const T* __restrict__ g,
+                 T* __restrict__ dq, T* __restrict__ partial, int n,
+                 int64_t M, int per_row_coeffs, int clamp, int tiles,
+                 int chunks, int copies) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* sm = reinterpret_cast<T*>(smem_raw);
+    const Table<T> tab(n);
+    const int E = tab.table;                      // 4(n-1) sums per channel
+    T* acc = sm + K * tab.table + tab.keys + 1;   // copies x K x E
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+    const int64_t row = blockIdx.x / chunks;
+    const int64_t m0 = (blockIdx.x - row * chunks) * (int64_t)tiles *
+                       BWD_THREADS;
+    const int64_t m1 = m0 + (int64_t)tiles * BWD_THREADS < M
+        ? m0 + (int64_t)tiles * BWD_THREADS : M;
+    tab.template stage<K, 2>(sm, x, coeffs + (per_row_coeffs ? row : 0) * K *
+                             tab.table, tid, BWD_THREADS);
+    if (DC)
+        for (int e = tid; e < copies * K * E; e += BWD_THREADS) acc[e] = T(0);
+    __syncthreads();
+
+    const T* key = sm + K * tab.table;
+    const T x0 = key[0], xn = key[tab.keys];
+    const int rounds = BWD_WARPS / copies;        // turns per shared copy
+    T* mine = acc + (warp % copies) * K * E;
+    for (int64_t base = m0; base < m1; base += BWD_THREADS) {   // uniform
+        const int64_t m = base + tid;
+        const bool active = m < m1;
+        const T qv = active ? __ldcs(q + row * M + m) : T(0);
+        T gk[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+            gk[k] = active ? __ldcs(g + (row * K + k) * M + m) : T(0);
+        T qq[1] = {qv};
+        int idx[1];
+        T xl[1];
+        tab.template locate<K, 1>(sm, clamp, qq, idx, xl);
+        if (qq[0] != qq[0]) idx[0] = n - 2;       // NaN sorts last
+        const T t = qq[0] - xl[0];
+        if (dq != nullptr && active) {
+            T d = T(0);
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                T c0, c1, c2, c3;
+                tab.coeffs(sm + k * tab.table, idx[0], c0, c1, c2, c3);
+                const T dk = gk[k] * ((T(3) * c3 * t + T(2) * c2) * t + c1);
+                d = k == 0 ? dk : d + dk;
+            }
+            if (clamp)
+                d = d * ((qv > x0 && qv < xn) ? T(1)
+                         : (qv == x0 || qv == xn) ? T(0.5) : T(0));
+            __stcs(dq + row * M + m, d);
+        }
+        if (DC) {
+            const int ival = active ? idx[0] : -1;
+            const unsigned group = __match_any_sync(0xffffffffu, ival);
+            T s[K][4];
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) s[k][j] = T(0);
+            unsigned rest = group;
+            // every lane walks its own group in ascending lane order; the
+            // loop runs to the largest group of the warp, all lanes together
+            while (__any_sync(0xffffffffu, rest != 0u)) {
+                const int src = rest ? __ffs(rest) - 1 : lane;
+                const T ts = __shfl_sync(0xffffffffu, t, src);
+#pragma unroll
+                for (int k = 0; k < K; ++k) {
+                    T p = __shfl_sync(0xffffffffu, gk[k], src);
+                    if (rest) {
+                        s[k][0] += p;
+                        p = mul_rn(p, ts);
+                        s[k][1] += p;
+                        p = mul_rn(p, ts);
+                        s[k][2] += p;
+                        p = mul_rn(p, ts);
+                        s[k][3] += p;
+                    }
+                }
+                rest &= rest - 1u;
+            }
+            const bool leader = active && lane == __ffs(group) - 1;
+            for (int r = 0; r < rounds; ++r) {
+                if (leader && warp / copies == r) {
+#pragma unroll
+                    for (int k = 0; k < K; ++k)
+#pragma unroll
+                        for (int j = 0; j < 4; ++j)
+                            mine[k * E + 4 * idx[0] + j] += s[k][j];
+                }
+                if (rounds > 1) __syncthreads();
+                else __syncwarp();
+            }
+        }
+    }
+    if (DC) {
+        __syncthreads();
+        T* out = partial + (int64_t)blockIdx.x * K * E;
+        for (int e = tid; e < K * E; e += BWD_THREADS) {
+            T v = acc[e];
+            for (int c = 1; c < copies; ++c) v += acc[c * K * E + e];
+            out[e] = v;
+        }
+    }
+}
+
+// dcoeffs[r] = the sum of the partials of the chunks that read table r, in
+// chunk order: 32 chunk lanes per element, then their sums in lane order.
+// grid (tables, ceil(KE / 32)), block (32, RED_LANES).
+template <typename T>
+__global__ void __launch_bounds__(32 * RED_LANES)
+ppoly_bwd_reduce(const T* __restrict__ partial, T* __restrict__ dcoeffs,
+                 int KE, int chunks, int per_row_coeffs, int64_t all_chunks) {
+    __shared__ T lanes[RED_LANES][33];
+    const int64_t r = blockIdx.x;
+    const int e = blockIdx.y * 32 + threadIdx.x;
+    const int64_t c0 = per_row_coeffs ? r * chunks : 0;
+    const int64_t cn = per_row_coeffs ? chunks : all_chunks;
+    T s = T(0);
+    if (e < KE)
+        for (int64_t c = threadIdx.y; c < cn; c += RED_LANES)
+            s += partial[(c0 + c) * KE + e];
+    lanes[threadIdx.y][threadIdx.x] = s;
+    __syncthreads();
+    if (threadIdx.y == 0 && e < KE) {
+        T v = lanes[0][threadIdx.x];
+        for (int y = 1; y < RED_LANES; ++y) v += lanes[y][threadIdx.x];
+        dcoeffs[r * KE + e] = v;
+    }
+}
+
+template <typename T, int K, bool DC>
+int launch_bwd_k(const T* x, const T* c, const T* q, const T* g, T* dq,
+                 T* dc, T* partial, int n, long long B, long long M,
+                 int per_row_coeffs, int clamp, int tiles, int chunks,
+                 int copies, int smem, cudaStream_t s) {
+    auto kernel = ppoly_bwd_chunks<T, K, DC>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const long long grid = B * chunks;
+    kernel<<<(unsigned)grid, BWD_THREADS, smem, s>>>(
+        x, c, q, g, dq, partial, n, M, per_row_coeffs, clamp, tiles, chunks,
+        copies);
+    if (DC) {
+        const int KE = K * 4 * (n - 1);
+        const dim3 rgrid((unsigned)(per_row_coeffs ? B : 1),
+                         (unsigned)((KE + 31) / 32));
+        ppoly_bwd_reduce<T><<<rgrid, dim3(32, RED_LANES), 0, s>>>(
+            partial, dc, KE, chunks, per_row_coeffs, grid);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int K>
+int launch_bwd_dc(const T* x, const T* c, const T* q, const T* g, T* dq,
+                  T* dc, T* partial, int n, long long B, long long M,
+                  int per_row_coeffs, int clamp, int tiles, int chunks,
+                  int copies, int smem, cudaStream_t s) {
+    if (dc != nullptr)
+        return launch_bwd_k<T, K, true>(x, c, q, g, dq, dc, partial, n, B, M,
+                                        per_row_coeffs, clamp, tiles, chunks,
+                                        copies, smem, s);
+    return launch_bwd_k<T, K, false>(x, c, q, g, dq, dc, partial, n, B, M,
+                                     per_row_coeffs, clamp, tiles, chunks,
+                                     copies, smem, s);
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* coeffs, const void* q,
+               const void* g, void* dq, void* dcoeffs, void* partial, int n,
+               int K, long long B, long long M, int per_row_coeffs, int clamp,
+               int tiles, int chunks, int copies, int smem, void* stream) {
+    const T* xt = static_cast<const T*>(x);
+    const T* ct = static_cast<const T*>(coeffs);
+    const T* qt = static_cast<const T*>(q);
+    const T* gt = static_cast<const T*>(g);
+    T* dqt = static_cast<T*>(dq);
+    T* dct = static_cast<T*>(dcoeffs);
+    T* pt = static_cast<T*>(partial);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (tiles < 1 || chunks < 1 || copies < 1 || BWD_WARPS % copies != 0 ||
+        (dct != nullptr && pt == nullptr) || B * chunks > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    switch (K) {
+        case 1: return launch_bwd_dc<T, 1>(xt, ct, qt, gt, dqt, dct, pt, n, B,
+                                           M, per_row_coeffs, clamp, tiles,
+                                           chunks, copies, smem, s);
+        case 2: return launch_bwd_dc<T, 2>(xt, ct, qt, gt, dqt, dct, pt, n, B,
+                                           M, per_row_coeffs, clamp, tiles,
+                                           chunks, copies, smem, s);
+        case 3: return launch_bwd_dc<T, 3>(xt, ct, qt, gt, dqt, dct, pt, n, B,
+                                           M, per_row_coeffs, clamp, tiles,
+                                           chunks, copies, smem, s);
+        case 4: return launch_bwd_dc<T, 4>(xt, ct, qt, gt, dqt, dct, pt, n, B,
+                                           M, per_row_coeffs, clamp, tiles,
+                                           chunks, copies, smem, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
 }  // namespace
 
 // Plain C entry points for ctypes. The caller validates shapes and sizes and
@@ -399,6 +670,42 @@ extern "C" int ppoly_eval_f32(const void* x, const void* coeffs, const void* q,
                               void* stream) {
     return launch<float>(x, coeffs, q, out, n, K, B, M, per_row_coeffs, clamp,
                          vec, loads, grid, smem, stream);
+}
+
+// The backward (one call launches the chunk kernel and, when dcoeffs is
+// wanted, the reduce). dq null: no dq; dcoeffs null: no coefficient sums
+// (partial is then unused). The caller validates shapes and passes the plan
+// (tiles per chunk, chunks per row, accumulator copies dividing 8, dynamic
+// shared memory bytes) and a partial buffer of B * chunks * K * 4(n-1)
+// elements. Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a plan the kernel does not take.
+extern "C" int ppoly_eval_backward_f64(
+        const void* x, const void* coeffs, const void* q, const void* g,
+        void* dq, void* dcoeffs, void* partial, int n, int K, long long B,
+        long long M, int per_row_coeffs, int clamp, int tiles, int chunks,
+        int copies, int smem, void* stream) {
+    return launch_bwd<double>(x, coeffs, q, g, dq, dcoeffs, partial, n, K, B,
+                              M, per_row_coeffs, clamp, tiles, chunks, copies,
+                              smem, stream);
+}
+
+extern "C" int ppoly_eval_backward_f32(
+        const void* x, const void* coeffs, const void* q, const void* g,
+        void* dq, void* dcoeffs, void* partial, int n, int K, long long B,
+        long long M, int per_row_coeffs, int clamp, int tiles, int chunks,
+        int copies, int smem, void* stream) {
+    return launch_bwd<float>(x, coeffs, q, g, dq, dcoeffs, partial, n, K, B,
+                             M, per_row_coeffs, clamp, tiles, chunks, copies,
+                             smem, stream);
+}
+
+// What the backward's plan needs of this kernel, in g[0..2]: BWD_THREADS,
+// its warps, and the resident blocks per SM that the chunking aims to fill.
+extern "C" int ppoly_eval_backward_geometry(int* g) {
+    g[0] = BWD_THREADS;
+    g[1] = BWD_WARPS;
+    g[2] = BWD_BLOCKS_PER_SM;
+    return 0;
 }
 
 // What the wrapper's launch plan needs of the card and of this kernel, in

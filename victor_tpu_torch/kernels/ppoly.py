@@ -12,8 +12,14 @@ JAX masksum; `ppoly_eval_plain` is the same function in plain PyTorch
 
 and return (B, M) for 3D coefficients, (B, K, M) for 4D ones: one interval
 search per query serves every channel. `ops.splines.ppoly_eval` and
-`ops.splines.ppoly_eval_multi` pick between them by device. There is no
-autograd: the TPU kernel had no VJP and this path is forward only.
+`ops.splines.ppoly_eval_multi` pick between them by device.
+
+The gradient (which the TPU kernel lacked: JAX differentiated its plain
+version) is `PpolyEval`, a `torch.autograd.Function` whose backward is the
+hand-written kernel of the same source (`ppoly_eval_backward_cuda`) on CUDA
+tensors and `ppoly_eval_backward_plain` on CPU tensors: dq, and dcoeffs
+summed over each table's queries in a fixed order. First order only; x
+takes no gradient.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ from . import _build
 LAUNCHES = 0
 #: of those, launches with more than one channel
 LAUNCHES_MULTI = 0
+#: launches of the backward kernel (one per backward call)
+LAUNCHES_BWD = 0
 
 MAX_KNOTS = 1024          # with K = 1: 40,936 bytes of table in f64, < 48 KB
 MAX_CHANNELS = 4          # instantiated in csrc/ppoly_eval.cu
@@ -40,8 +48,13 @@ TWO_LOADS_WAVES = 4       # two vectors per thread from this many waves of work
 _ARGTYPES = ([ctypes.c_void_p] * 4 +
              [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
              + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 +
+                 [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+BWD_SMEM_BUDGET = 48 * 1024   # the backward halves its accumulator copies
+                              # until table + copies fit in this
 _DTYPES = {torch.float32: 4, torch.float64: 8}     # dtype -> itemsize
-_ENTRIES: dict = {}       # dtype -> ctypes function, argtypes set once
+_ENTRIES: dict = {}       # (dtype, backward) -> ctypes function
 _GEOMETRY: dict = {}      # device index -> Geometry
 
 
@@ -68,15 +81,27 @@ class LaunchPlan(NamedTuple):
     smem: int
 
 
-def _entry(dtype: torch.dtype):
-    fn = _ENTRIES.get(dtype)
+class BackwardPlan(NamedTuple):
+    """How one backward call is launched: tiles of `threads` queries per
+    chunk (one block each), chunks per row, copies of the coefficient
+    accumulators in shared memory (dividing the warps), dynamic shared
+    memory bytes."""
+    tiles: int
+    chunks: int
+    copies: int
+    smem: int
+
+
+def _entry(dtype: torch.dtype, backward: bool = False):
+    fn = _ENTRIES.get((dtype, backward))
     if fn is None:
         lib = _build.load('ppoly_eval')
-        fn = lib.ppoly_eval_f64 if dtype == torch.float64 \
-            else lib.ppoly_eval_f32
-        fn.argtypes = _ARGTYPES
+        name = ('ppoly_eval_backward_' if backward else 'ppoly_eval_') + \
+            ('f64' if dtype == torch.float64 else 'f32')
+        fn = getattr(lib, name)
+        fn.argtypes = _BWD_ARGTYPES if backward else _ARGTYPES
         fn.restype = ctypes.c_int
-        _ENTRIES[dtype] = fn
+        _ENTRIES[(dtype, backward)] = fn
     return fn
 
 
@@ -91,6 +116,49 @@ def _geometry(index: int) -> Geometry:
         geo = Geometry(g[0], g[1], g[2], g[3], (g[4], g[5]))
         _GEOMETRY[index] = geo
     return geo
+
+
+class BackwardGeometry(NamedTuple):
+    """What the backward's plan needs: the SM count, and threads per block,
+    warps per block and the resident blocks per SM the chunking aims at, as
+    `ppoly_eval_backward_geometry` reports them."""
+    sms: int
+    threads: int
+    warps: int
+    blocks_per_sm: int
+
+
+def _backward_geometry(index: int) -> BackwardGeometry:
+    geo = _GEOMETRY.get(('backward', index))
+    if geo is None:
+        g = (ctypes.c_int * 3)()
+        _build.load('ppoly_eval').ppoly_eval_backward_geometry(g)
+        geo = BackwardGeometry(_geometry(index).sms, g[0], g[1], g[2])
+        _GEOMETRY[('backward', index)] = geo
+    return geo
+
+
+@functools.lru_cache(maxsize=1024)
+def backward_plan(B: int, M: int, K: int, n: int, itemsize: int,
+                  want_dcoeffs: bool, geo: BackwardGeometry) -> BackwardPlan:
+    """The launch of one backward call on a card of geometry `geo`.
+
+    A chunk is `tiles` consecutive tiles of `geo.threads` queries of one
+    row, one block; chunks are sized so that the call has about SMs x
+    `geo.blocks_per_sm` of them (each writes one partial table, so fewer,
+    longer chunks trade parallelism for reduce traffic). Each warp keeps its
+    own copy of the K x 4(n-1) coefficient sums while the table and the
+    copies fit BWD_SMEM_BUDGET; beyond it warps pair up (halving the copies)
+    down to one copy that all warps take turns on (n near 1,024)."""
+    row_tiles = -(-M // geo.threads)
+    tiles = max(1, -(-B * row_tiles // (geo.sms * geo.blocks_per_sm)))
+    table = _smem_bytes(n, K, itemsize)
+    copy = 4 * K * (n - 1) * itemsize if want_dcoeffs else 0
+    copies = geo.warps
+    while copies > 1 and table + copies * copy > BWD_SMEM_BUDGET:
+        copies //= 2
+    return BackwardPlan(tiles, -(-row_tiles // tiles), copies,
+                        table + copies * copy)
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,9 +205,11 @@ def check_args(x, coeffs, q) -> int:
     if dtype not in _DTYPES or x.dtype != dtype or coeffs.dtype != dtype:
         raise TypeError('ppoly_eval_cuda takes float32 or float64, one dtype '
                         f'for all; got {x.dtype}, {coeffs.dtype}, {q.dtype}')
-    if x.requires_grad or coeffs.requires_grad or q.requires_grad:
-        raise RuntimeError('ppoly_eval_cuda has no backward: the kernel is '
-                           'forward only (gradients come with the HMC port)')
+    if torch.is_grad_enabled() and (x.requires_grad or coeffs.requires_grad
+                                    or q.requires_grad):
+        raise RuntimeError('ppoly_eval_cuda has no backward of its own: it '
+                           'records no gradient; differentiate through '
+                           'ops.splines.ppoly_eval (PpolyEval)')
     xs, cs, qs = x.shape, coeffs.shape, q.shape
     n = xs[0] if len(xs) == 1 else -1
     if not 2 <= n <= MAX_KNOTS:
@@ -204,13 +274,15 @@ def ppoly_eval_cuda(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
 
 def ppoly_eval_plain(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
                      clamp: bool = True) -> torch.Tensor:
-    """The same function in plain PyTorch: `torch.clamp` (which keeps NaN),
+    """The same function in plain PyTorch: `ops.special.clip` (selects, so
+    NaN stays NaN; JAX's derivative when autograd runs through it),
     searchsorted(right) and a gather per coefficient, the kernel's Horner
     order and its `+ (qq - qq)` NaN term. With 4D coefficients the interval
     index is found once and every channel gathers with it, so each channel
     equals a 3D call on its own table bit for bit."""
+    from ..ops.special import clip
     n = x.shape[0]
-    qq = torch.clamp(q, x[0], x[-1]) if clamp else q
+    qq = clip(q, x[0], x[-1]) if clamp else q
     idx = torch.clamp(torch.searchsorted(x, qq, right=True) - 1, 0, n - 2)
     t = qq - x[idx]
     if coeffs.ndim == 4:
@@ -225,3 +297,150 @@ def _horner(coeffs, idx, t, qq):
     c = coeffs.expand(qq.shape[0], -1, -1)
     c0, c1, c2, c3 = (torch.gather(c[..., k], 1, idx) for k in range(4))
     return ((c3 * t + c2) * t + c1) * t + c0 + (qq - qq)
+
+
+# ---------------------------------------------------------------------------
+# The backward
+# ---------------------------------------------------------------------------
+
+def check_grad_args(x, coeffs, q, grad_out) -> int:
+    """`check_args`, and raise on a grad_out the backward does not take:
+    q's dtype, contiguous, (B, M) for 3D coefficients and (B, K, M) for 4D
+    ones. Returns K."""
+    K = check_args(x, coeffs, q)
+    want = (q.shape[0], K, q.shape[1]) if coeffs.ndim == 4 else tuple(q.shape)
+    if tuple(grad_out.shape) != want or grad_out.dtype != q.dtype:
+        raise ValueError(f'grad_out must be {want} {q.dtype}; got '
+                         f'{tuple(grad_out.shape)} {grad_out.dtype}')
+    if not grad_out.is_contiguous():
+        raise ValueError('ppoly_eval_backward_cuda: grad_out must be '
+                         'contiguous')
+    return K
+
+
+def ppoly_eval_backward_cuda(x, coeffs, q, grad_out, clamp: bool = True,
+                             want_dq: bool = True, want_dcoeffs: bool = True):
+    """Launch the backward kernel on the current stream (no
+    synchronisation): (dq (B, M) or None, dcoeffs (coeffs' shape) or None).
+    The coefficient sums run in a fixed order (csrc/ppoly_eval.cu), so the
+    same inputs give the same bits on every call."""
+    global LAUNCHES_BWD
+    K = check_grad_args(x, coeffs, q, grad_out)
+    dev = q.device
+    if not (dev.type == 'cuda' and x.device == dev and coeffs.device == dev
+            and grad_out.device == dev):
+        raise ValueError('ppoly_eval_backward_cuda needs x, coeffs, q and '
+                         f'grad_out on one CUDA device; got {x.device}, '
+                         f'{coeffs.device}, {dev}, {grad_out.device}')
+    B, M = q.shape
+    n = x.shape[0]
+    dq = torch.empty_like(q) if want_dq else None
+    dc = torch.empty_like(coeffs) if want_dcoeffs else None
+    if B * M == 0 or not (want_dq or want_dcoeffs):
+        if dc is not None:
+            dc.zero_()
+        return dq, dc
+    index = dev.index
+    plan = backward_plan(B, M, K, n, _DTYPES[q.dtype], want_dcoeffs,
+                         _backward_geometry(index))
+    partial = torch.empty(B * plan.chunks * K * 4 * (n - 1), dtype=q.dtype,
+                          device=dev) if want_dcoeffs else None
+    args = (x.data_ptr(), coeffs.data_ptr(), q.data_ptr(),
+            grad_out.data_ptr(), None if dq is None else dq.data_ptr(),
+            None if dc is None else dc.data_ptr(),
+            None if partial is None else partial.data_ptr(), n, K, B, M,
+            int(coeffs.shape[0] > 1), int(clamp), plan.tiles, plan.chunks,
+            plan.copies, plan.smem)
+    fn = _entry(q.dtype, backward=True)
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError('ppoly_eval backward kernel launch failed: CUDA '
+                           f'error {err}')
+    LAUNCHES_BWD += 1
+    return dq, dc
+
+
+def ppoly_eval_backward_plain(x, coeffs, q, grad_out, clamp: bool = True,
+                              want_dq: bool = True,
+                              want_dcoeffs: bool = True):
+    """The backward kernel's function in plain PyTorch, in its op order:
+    the clip's selects, searchsorted(right) (which puts a NaN query in the
+    last interval, as JAX's searchsorted does), gathers, the
+    derivative's Horner form ((3 c3) t + 2 c2) t + c1 summed over channels
+    in order and times the clip factor (1 inside, 0.5 at a bound, 0
+    outside), and the terms g (1, t, t^2, t^3) summed per table by
+    `index_add_`. Returns (dq or None, dcoeffs or None)."""
+    from ..ops.special import _select
+    n = x.shape[0]
+    B, M = q.shape
+    c = coeffs if coeffs.ndim == 4 else coeffs[:, None]       # (Bc, K, ...)
+    g = grad_out if coeffs.ndim == 4 else grad_out[:, None]   # (B, K, M)
+    Bc, K = c.shape[:2]
+    qq = _select(q, x[0], x[-1]) if clamp else q
+    idx = torch.clamp(torch.searchsorted(x, qq, right=True) - 1, 0, n - 2)
+    t = qq - x[idx]
+    dq = dc = None
+    if want_dq:
+        ce = c.expand(B, -1, -1, -1)
+        for k in range(K):
+            c1, c2, c3 = (torch.gather(ce[:, k, :, j], 1, idx)
+                          for j in (1, 2, 3))
+            dk = g[:, k] * ((3.0 * c3 * t + 2.0 * c2) * t + c1)
+            dq = dk if dq is None else dq + dk
+        if clamp:
+            inside = (q > x[0]) & (q < x[-1])
+            tie = (q == x[0]) | (q == x[-1])
+            dq = dq * torch.where(inside, 1.0, torch.where(tie, 0.5, 0.0)).to(
+                q.dtype)
+    if want_dcoeffs:
+        p1 = g * t[:, None]
+        p2 = p1 * t[:, None]
+        terms = torch.stack([g, p1, p2, p2 * t[:, None]], -1)  # (B, K, M, 4)
+        table = torch.arange(K, device=q.device)[None, :, None]
+        if Bc > 1:
+            table = table + K * torch.arange(B, device=q.device)[:, None, None]
+        flat = (table * (n - 1) + idx[:, None, :]).expand(B, K, M)
+        dc = torch.zeros(Bc * K * (n - 1), 4, dtype=q.dtype, device=q.device)
+        dc.index_add_(0, flat.reshape(-1), terms.reshape(-1, 4))
+        dc = dc.reshape(coeffs.shape)
+    return dq, dc
+
+
+class PpolyEval(torch.autograd.Function):
+    """`ppoly_eval` with its gradient to q and to the coefficients: forward
+    `ppoly_eval_cuda` or `ppoly_eval_plain`, backward
+    `ppoly_eval_backward_cuda` or `ppoly_eval_backward_plain`, by device.
+    First order only: a backward that records a graph (a second derivative)
+    raises. `ops.splines` calls it only while a gradient is being
+    recorded."""
+
+    @staticmethod
+    def forward(ctx, x, coeffs, q, clamp):
+        if ctx.needs_input_grad[0]:
+            raise RuntimeError('ppoly_eval takes no gradient to its knots x: '
+                               'pass a knot vector that does not require '
+                               'grad')
+        ctx.clamp = clamp
+        ctx.save_for_backward(x, coeffs, q)
+        if q.is_cuda:
+            return ppoly_eval_cuda(x, coeffs, q, clamp)
+        return ppoly_eval_plain(x, coeffs, q, clamp)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                'ppoly_eval has a first-order backward only: second '
+                'derivatives (create_graph=True, Hessians, forward mode) '
+                'come with ROADMAP Queue 1 item 10b')
+        x, coeffs, q = ctx.saved_tensors
+        fn = ppoly_eval_backward_cuda if q.is_cuda else \
+            ppoly_eval_backward_plain
+        dq, dc = fn(x, coeffs, q, grad_out.contiguous(), ctx.clamp,
+                    want_dq=ctx.needs_input_grad[2],
+                    want_dcoeffs=ctx.needs_input_grad[1])
+        return None, dc, dq, None

@@ -33,7 +33,7 @@ import math
 
 import torch
 
-from ..ops.special import growth_factor_lcdm, ipow
+from ..ops.special import clip, growth_factor_lcdm, ipow
 from ..ops.splines import (cubic_coeffs_dynamic, gradient_nonuniform,
                            ppoly_eval_dynamic)
 from .ccf_theory import _param
@@ -89,7 +89,7 @@ def _esm_grid_interp(tables, spec, params):
         lo = torch.clamp(kidx - 1, 0, n - 2)
         t = (x - g[lo]) / (g[lo + 1] - g[lo])
         los.append(lo)
-        ts.append(torch.clamp(t, 0.0, 1.0))      # clamp outside the grid hull
+        ts.append(clip(t, 0.0, 1.0))      # clamp outside the grid hull
     logpk = torch.zeros(like.shape + tables.esm_pk_grid.shape[-1:],
                         dtype=like.dtype, device=like.device)
     s80 = torch.zeros_like(like)

@@ -14,6 +14,11 @@ Gauss-Legendre quadrature (~1e-13 against scipy over z in [-50, 0]).
 `ipow` is the integer power of the JAX package: jnp's `x ** n` for a Python
 int n is `lax.integer_pow`, a fixed product chain, where `torch.pow` may call
 the libm `pow` (it does for n = 4) and round differently.
+
+`clip` is `jnp.clip` with JAX's derivative: `jnp.clip(a, lo, hi)` is
+`minimum(hi, maximum(lo, a))`, and JAX's max and min split the derivative
+evenly between tied operands, so d clip / d a is 1 inside, 0.5 at either
+bound and 0 outside, where `torch.clamp`'s is 1 at a bound.
 """
 
 from __future__ import annotations
@@ -22,6 +27,58 @@ from math import gamma
 
 import numpy as np
 import torch
+
+
+def _select(a, lo, hi):
+    """The values of clip: selects, so a NaN `a` stays NaN (fmin/fmax would
+    return the bound), as `_Clip.forward` computes them."""
+    m = torch.where(a < lo, lo, a)
+    return torch.where(m > hi, hi, m)
+
+
+def _balanced(x, ans, other):
+    """JAX's share of d max(x, y) / d x (and of min): 1 where x is the
+    result, halved where the other operand ties it, 0 elsewhere."""
+    return (x == ans).to(ans.dtype) / (1.0 + (other == ans).to(ans.dtype))
+
+
+def _reduce_to(g, like):
+    """Sum a gradient over the axes that `like` (a tensor) was broadcast
+    along."""
+    return g.sum_to_size(like.shape) if g.shape != like.shape else g
+
+
+class _Clip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, lo, hi):
+        m = torch.where(a < lo, lo, a)               # maximum(lo, a)
+        out = torch.where(m > hi, hi, m)             # minimum(hi, m)
+        ctx.save_for_backward(a, lo, hi, m, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, lo, hi, m, out = ctx.saved_tensors
+        g_m = g * _balanced(m, out, hi)              # through minimum(hi, m)
+        grads = [g_m * _balanced(a, m, lo), None, None]
+        if ctx.needs_input_grad[1]:                  # maximum(lo, a)
+            grads[1] = _reduce_to(g_m * _balanced(lo, m, a), lo)
+        if ctx.needs_input_grad[2]:
+            grads[2] = _reduce_to(g * _balanced(hi, out, m), hi)
+        return tuple(grads)
+
+
+def clip(a: torch.Tensor, lo, hi) -> torch.Tensor:
+    """`jnp.clip(a, lo, hi)`: the values of `torch.clamp` (NaN stays NaN),
+    computed with selects, and JAX's derivative to a, lo and hi (module
+    docstring). lo and hi are numbers or tensors that broadcast against a;
+    the autograd Function runs only where a gradient is being recorded."""
+    tensors = [t for t in (a, lo, hi) if isinstance(t, torch.Tensor)]
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in tensors)):
+        return _select(a, lo, hi)
+    lo, hi = (b if isinstance(b, torch.Tensor) else
+              torch.tensor(b, dtype=a.dtype, device=a.device) for b in (lo, hi))
+    return _Clip.apply(a, lo, hi)
 
 _A, _B, _C = 5.0 / 6.0, 3.0 / 2.0, 11.0 / 6.0
 _PREFAC = gamma(_C) / (gamma(_B) * gamma(_C - _B))

@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from ..kernels import dispersion as _dispersion
-from ..kernels.ppoly import ppoly_eval_cuda, ppoly_eval_plain
-from .special import ipow
+from ..kernels.ppoly import PpolyEval, ppoly_eval_cuda, ppoly_eval_plain
+from .special import clip, ipow
 
 
 # ---------------------------------------------------------------------------
@@ -128,16 +128,26 @@ def ppoly_eval(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
             polynomials extend (ext=0). NaN queries give NaN either way.
 
     CUDA tensors go to the CUDA kernel, which raises on what it cannot take;
-    CPU tensors go to the plain version.
+    CPU tensors go to the plain version. While a gradient is recorded, both
+    go through `PpolyEval`, whose backward is the backward kernel or its
+    plain version (`_lookup`).
     """
     rows = coeffs.shape[0] if coeffs.ndim == 3 else 1
     c = coeffs.reshape(rows, *coeffs.shape[-2:]).contiguous()
     q2 = q.reshape(rows, -1).contiguous()
-    if q.is_cuda:
-        out = ppoly_eval_cuda(x, c, q2, clamp)
-    else:
-        out = ppoly_eval_plain(x, c, q2, clamp)
-    return out.reshape(q.shape)
+    return _lookup(x, c, q2, clamp).reshape(q.shape)
+
+
+def _lookup(x, c, q2, clamp):
+    """The kernel or the plain version by device, through the autograd
+    Function only when a gradient to q or the coefficients is recorded: the
+    samplers' forward-only steps keep the direct call."""
+    if torch.is_grad_enabled() and (q2.requires_grad or c.requires_grad or
+                                    x.requires_grad):
+        return PpolyEval.apply(x, c, q2, clamp)
+    if q2.is_cuda:
+        return ppoly_eval_cuda(x, c, q2, clamp)
+    return ppoly_eval_plain(x, c, q2, clamp)
 
 
 def ppoly_eval_multi(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
@@ -153,11 +163,8 @@ def ppoly_eval_multi(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
     """
     c = (coeffs if coeffs.ndim == 4 else coeffs[None]).contiguous()
     q2 = q.reshape(q.shape[0], -1).contiguous()
-    if q.is_cuda:
-        out = ppoly_eval_cuda(x, c, q2, clamp)
-    else:
-        out = ppoly_eval_plain(x, c, q2, clamp)
-    return out.reshape(q.shape[:1] + c.shape[1:2] + q.shape[1:])
+    return _lookup(x, c, q2, clamp).reshape(q.shape[:1] + c.shape[1:2] +
+                                            q.shape[1:])
 
 
 def dispersion_final(x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel):
@@ -207,11 +214,11 @@ def chebyshev_fit(fn, a, b, degree: int = 32):
 def chebyshev_eval(coef, a, b, q):
     """Clenshaw evaluation of per-row Chebyshev series on [a, b]: coef
     (B, K), a and b (B,), q (B, ...) -> q's shape. q is clamped into the
-    domain by `torch.clamp`, which keeps NaN. The recurrence is the JAX
-    package's, step for step."""
+    domain by `clip` (NaN stays NaN; JAX's derivative). The recurrence is
+    the JAX package's, step for step."""
     shape = (-1,) + (1,) * (q.ndim - 1)
     a, b = a.reshape(shape), b.reshape(shape)
-    u = torch.clamp((2.0 * q - (a + b)) / (b - a), -1.0, 1.0)
+    u = clip((2.0 * q - (a + b)) / (b - a), -1.0, 1.0)
     u2 = 2.0 * u          # `2.0 * u * b1` is (2.0 * u) * b1: hoisted, same bits
     b1 = torch.zeros_like(u)
     b2 = torch.zeros_like(u)
@@ -225,7 +232,9 @@ def pchip_eval(x, coeffs, q):
     with polynomial end-extrapolation (scipy PchipInterpolator semantics).
     Returns q.shape + the table's trailing shape."""
     n = x.shape[0]
-    idx = torch.clamp(torch.searchsorted(x, q, right=True) - 1, 0, n - 2)
+    # a column of a parameter matrix (beta under autograd) is strided
+    idx = torch.clamp(torch.searchsorted(x, q.contiguous(), right=True) - 1,
+                      0, n - 2)
     t = q - x[idx]
     c = coeffs[idx]                               # q.shape + (4, ...)
     t = t.reshape(t.shape + (1,) * (c.ndim - q.ndim - 1))
@@ -334,14 +343,14 @@ class Bicubic2D:
                          y_const=self.y_const)
 
     def ev(self, q: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-        qc = torch.clamp(q, self.x[0], self.x[-1])
+        qc = clip(q, self.x[0], self.x[-1])
         rank = self.cu.shape[0]
         if self.y_const:
             out = ppoly_eval(self.x, self.cu[0], qc, clamp=False)
             for m in range(1, rank):
                 out = out + ppoly_eval(self.x, self.cu[m], qc, clamp=False)
             return out
-        pc = torch.clamp(p, self.y[0], self.y[-1])
+        pc = clip(p, self.y[0], self.y[-1])
         out = None
         for m in range(rank):
             term = ppoly_eval(self.x, self.cu[m], qc, clamp=False) * \
@@ -403,7 +412,7 @@ def ppoly_eval_dynamic(x, coeffs, q, clamp: bool = True):
     searchsorted and gathers, and its `+ (qq - qq)` NaN term; the JAX
     package's masksum selects the same polynomial."""
     n = x.shape[-1]
-    qq = torch.clamp(q, x[..., :1], x[..., -1:]) if clamp else q
+    qq = clip(q, x[..., :1], x[..., -1:]) if clamp else q
     idx = torch.clamp(torch.searchsorted(x.contiguous(), qq.contiguous(),
                                          right=True) - 1, 0, n - 2)
     t = qq - torch.gather(x, -1, idx)

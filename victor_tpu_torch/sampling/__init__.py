@@ -4,6 +4,7 @@ from .runner import run_mcmc, run_hmc_mcmc, make_posterior, MCMCResult
 from .targets import ProductTarget
 from . import hmc
 from . import mh
+from . import nuts
 from .chains import (save_checkpoint, load_checkpoint, export_getdist,
                      read_getdist, read_covmat, save_hmc_checkpoint,
                      load_hmc_checkpoint)
@@ -14,6 +15,7 @@ __all__ = [
     'ParamSpace', 'SampledParam', 'DerivedParam',
     'EnsembleState', 'init_state', 'step', 'run', 'make_logpost',
     'run_mcmc', 'run_hmc_mcmc', 'make_posterior', 'MCMCResult', 'hmc', 'mh',
+    'nuts',
     'ProductTarget',
     'save_checkpoint', 'load_checkpoint', 'export_getdist',
     'read_getdist', 'read_covmat', 'save_hmc_checkpoint',

@@ -8,10 +8,9 @@ walker ensemble in segments; check split-R-hat between segments (the cobaya
 R-1 < 0.01 stop, config/boss_cobaya_config.yaml:46-47); checkpoint sampler
 state every segment; export GetDist-format chains.
 
-`run_hmc_mcmc` runs the gradient-free `algorithm='mh'` (sampling/mh.py);
-'hmc' and 'nuts' differentiate through the likelihood, whose kernels are
-forward only in the port, and raise NotImplementedError. The chains live on
-one card (`device`, the card unless 'cpu' is asked for); victor_tpu's
+`run_hmc_mcmc` runs HMC (the default, sampling/hmc.py), NUTS
+(sampling/nuts.py) or the gradient-free MH (sampling/mh.py). The chains live
+on one card (`device`, the card unless 'cpu' is asked for); victor_tpu's
 `mesh=` sharding has no counterpart here.
 """
 
@@ -176,57 +175,74 @@ def initial_proposal_cholesky(space: ParamSpace, y: torch.Tensor,
 
 def run_hmc_mcmc(bundle, params_block: Dict,
                  n_chains: int = 8, n_warmup: int = 300, n_samples: int = 700,
-                 seed: int = 0,
+                 n_leapfrog: int = 16, seed: int = 0,
                  opts_kw: Optional[Dict] = None, fit_kw: Optional[Dict] = None,
                  output: Optional[str] = None,
                  checkpoint: Optional[str] = None, resume: bool = False,
                  burn_in_fraction: float = 0.0, segment_steps: int = 100,
-                 algorithm: str = 'mh', covmat=None,
+                 algorithm: str = 'hmc', max_depth: int = 8, covmat=None,
                  rhat_stop: Optional[float] = None,
                  device='cuda') -> MCMCResult:
-    """Adaptive-chain sampling; in the port `algorithm='mh'`, the default
-    (gradient-free adaptive random-walk Metropolis — the reference's cobaya
-    sampler family, sampling/mh.py). 'hmc' and 'nuts' raise
-    NotImplementedError: they need gradients of the likelihood kernels, a
-    later slice of the port, which brings their arguments (n_leapfrog,
-    max_depth) and makes 'hmc' the default again, as in victor_tpu.
+    """Adaptive-chain sampling: 'hmc' (the default; dense-mass HMC with
+    jittered trajectories of about `n_leapfrog` steps, sampling/hmc.py),
+    'nuts' (dynamic trajectories of up to 2^max_depth leapfrogs,
+    sampling/nuts.py) or 'mh' (gradient-free adaptive random-walk
+    Metropolis — the reference's cobaya sampler family, sampling/mh.py). All
+    three share the state and the staged warmup. HMC and NUTS differentiate
+    the posterior (autograd, and the spline lookups' backward kernel on the
+    card), so 'auto' perf modes resolve for gradients
+    (`gradient_free=False`, as victor_tpu does); MH resolves them
+    gradient-free.
 
     Positions are sampled in the unbounded reparameterisation and returned
     in the physical space. Independent chains advance together, one batched
-    likelihood call per step, in segments of `segment_steps` steps
-    (bit-identical to one uninterrupted run); each segment boundary writes
-    the checkpoint (exact resume) and the `<output>.progress` row.
+    likelihood call (and gradient) per step or leapfrog, in segments of
+    `segment_steps` steps (bit-identical to one uninterrupted run); each
+    segment boundary writes the checkpoint (exact resume) and the
+    `<output>.progress` row.
 
     `covmat`: optional cobaya-format `.covmat` path (or a theta-space
     (ndim, ndim) array ordered like the sampled block) seeding the initial
-    proposal covariance — cobaya's `mcmc: {covmat: ...}`; parameters absent
-    from the file fall back to their `proposal:` width squared. Without a
-    covmat the proposal diagonal comes from the block's `proposal:` widths.
-    Every exported chain writes `<output>.covmat` back.
+    proposal covariance (MH) or inverse mass matrix (HMC, NUTS) — cobaya's
+    `mcmc: {covmat: ...}`; parameters absent from the file fall back to
+    their `proposal:` width squared. Without a covmat MH's proposal diagonal
+    comes from the block's `proposal:` widths, and HMC and NUTS start from
+    the identity. Every exported chain writes `<output>.covmat` back.
 
     `rhat_stop`: optional convergence stop — cobaya's `Rminus1_stop`: after
     each post-warmup segment with >= 50 recorded draws, stop once split
     max(R-1) < rhat_stop. n_samples is then the draw cap. Stopping only
     truncates the run: the draws are the prefix of a fixed-length run's.
     """
+    from . import hmc as _hmc
     from . import mh as _mh
+    from . import nuts as _nuts
     from .targets import resolve_target
 
-    if algorithm in ('hmc', 'nuts'):
-        raise NotImplementedError(
-            f"algorithm={algorithm!r} needs gradients of the likelihood; the "
-            "port's kernels are forward only until the backward-kernel slice "
-            "(ROADMAP Queue 1 item 10). Use algorithm='mh'.")
-    if algorithm != 'mh':
-        raise ValueError(f"algorithm must be 'mh', 'hmc' or 'nuts', got "
+    if algorithm not in ('hmc', 'nuts', 'mh'):
+        raise ValueError(f"algorithm must be 'hmc', 'nuts' or 'mh', got "
                          f'{algorithm!r}')
     device = _target_device(device)
     space = ParamSpace(params_block)
+    # HMC and NUTS differentiate through the likelihood: 'auto' perf modes
+    # resolve per path, as in victor_tpu
     tables_arg, loglike = resolve_target(bundle, opts_kw, fit_kw,
-                                         gradient_free=True)
+                                         gradient_free=(algorithm == 'mh'))
     _check_device(tables_arg, device)
     covmat_arr = None if covmat is None else _read_covmat(covmat, space)
     logpost_y = unbounded_logpost(space, loglike, tables_arg)
+    if algorithm == 'mh':
+        def segment(st, i, length):
+            return _mh.run_segment(logpost_y, st, i, length,
+                                   n_warmup=n_warmup)
+    elif algorithm == 'hmc':
+        def segment(st, i, length):
+            return _hmc.run_segment(logpost_y, st, i, length,
+                                    n_warmup=n_warmup, n_leapfrog=n_leapfrog)
+    else:
+        def segment(st, i, length):
+            return _nuts.run_segment(logpost_y, st, i, length,
+                                     n_warmup=n_warmup, max_depth=max_depth)
 
     states = prev = i0 = None
     if resume and checkpoint:
@@ -234,7 +250,8 @@ def run_hmc_mcmc(bundle, params_block: Dict,
             states, pc, pl, pa, i0 = chain_io.load_hmc_checkpoint(
                 checkpoint, device)
             prev = (pc, pl, pa) if pc is not None else None
-            log.info('resumed MH from %s at step %s', checkpoint, i0)
+            log.info('resumed %s from %s at step %s', algorithm.upper(),
+                     checkpoint, i0)
         except FileNotFoundError:
             pass
     if states is not None:
@@ -255,15 +272,20 @@ def run_hmc_mcmc(bundle, params_block: Dict,
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         y0 = space.to_unbounded(space.sample_ref(gen, n_chains))
-        states = _mh.init_chains(
-            logpost_y, y0, gen,
-            chol0=initial_proposal_cholesky(space, y0, covmat_arr))
+        if algorithm == 'mh':
+            states = _mh.init_chains(
+                logpost_y, y0, gen,
+                chol0=initial_proposal_cholesky(space, y0, covmat_arr))
+        else:
+            # the metric starts from a covmat only: proposal widths are MH's
+            states = _hmc.init_chains(
+                logpost_y, y0, gen, chol0=None if covmat_arr is None else
+                initial_proposal_cholesky(space, y0, covmat_arr))
         i0 = 0
     recs = [prev] if prev is not None else []   # post-warmup (S,C,·) records
     while i0 < n_total:
         length = min(segment_steps, n_total - i0)
-        states, (qs, lnps, auxs) = _mh.run_segment(
-            logpost_y, states, i0, length, n_warmup=n_warmup)
+        states, (qs, lnps, auxs) = segment(states, i0, length)
         i0 += length
         keep = length - max(min(n_warmup - (i0 - length), length), 0)
         if keep > 0:
@@ -318,8 +340,8 @@ def run_hmc_mcmc(bundle, params_block: Dict,
     acc = float(np.mean(_host(states.n_accepted)) / n_recorded)
     # split-R-hat needs >=4 samples per chain to be defined
     max_rm1 = float(np.max(rhat - 1)) if len(chain) >= 4 else None
-    log.info('MH: %d chains x %d samples, acceptance=%.3f max(R-1)=%s',
-             n_chains, len(chain), acc,
+    log.info('%s: %d chains x %d samples, acceptance=%.3f max(R-1)=%s',
+             algorithm.upper(), n_chains, len(chain), acc,
              'n/a (<4 samples)' if max_rm1 is None else f'{max_rm1:.4f}')
 
     result = MCMCResult(
