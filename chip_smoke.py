@@ -89,11 +89,44 @@ result line is printed):
       own beside d: every draw finite and inside the prior box, the moments
       within 0.3 sigma and 25%, mean tree depth and acceptance statistic;
    f. HMC leapfrogs/s with streaming_eval 'exact' and 'fast', and the
-      kernels' device time per leapfrog under torch.profiler (information).
+      kernels' device time per leapfrog under torch.profiler (information);
+13. second derivatives and the optimizer layer at full BOSS width, f64:
+   a. the second-order terms of the spline lookup (the forward and backward
+      kernels on derived tables, kernels/ppoly.py::ppoly_eval_second_order)
+      against autograd with create_graph=True through the plain backward,
+      at the three lookups of one Hessian of the BOSS target (captured), at
+      K = 2 and 3 over (8, 150000) and at EDGE_CASES, in f64 and f32, NaN
+      and inf positions identical, each call twice for the same bits; the
+      Hessian's lookups timed;
+   b. -Hessians of lnL of GRAD_CASES at GOLDEN and DISPLACED against
+      victor_tpu's jax.hessian (HESS_GOLDENS) within 1e-8 of max|H|; one
+      Hessian's wall and device time, second-order launches and peak memory;
+   c. `python -m victor_tpu_torch fit configs/boss_sampling_config.yaml`
+      with its defaults in a subprocess (the .npz --set lines,
+      --covmat-out), started beside phase 12d: best fit, chi2 and Laplace
+      sigmas against victor_tpu's (FIT_GOLDENS), stationary, the covmat
+      file read back;
+   d. `forecast` at the config's ref point: Fisher sigmas against
+      FISHER_GOLDENS within 1e-8 relative;
+   e. `scan --param fsigma8 --ngrid 9`: its MAP against FIT_GOLDENS, the
+      profile minimum at the MAP's chi2, every grid point's profile chi2
+      against SCAN_GOLDENS within 1e-5;
+   f. `fit --bootstrap 4` with the launch counts set to 0 just before: the
+      fit against FIT_GOLDENS at full precision, every refit finite, at
+      victor_tpu's refit of the same mock (BOOT_GOLDENS) and polished
+      (|grad| < 1e-3), and the forward, backward and second-order launches,
+      the last also by Hessian lookup (calls and kernel launches);
+   g. `fit configs/esm_sampling_config.yaml` in f64 (ESM_FIT_STARTS
+      starts): the exact 9 x 9 Hessian at the optimum finite (so no
+      finite-difference fallback was taken), and
+      the Hessian at the ESM ref point against ESM_HESS_GOLDENS within 1e-7
+      of max|H|.
 
 The last two lines are a JSON summary of the kernels (device-only `ms`,
-`host_us`; the sampler row's `ms` is its L2-cold reading, beside `warm_ms`)
-and the result line {"ok": true, "device": {...}}. `--profile PATH` also
+`host_us`; the sampler row's `ms` is its L2-cold reading, beside `warm_ms`;
+a second-order row's `ms` is one composed call of several launches, its
+`calls` the composed calls at its lookup and its `launches` their kernel
+launches) and the result line {"ok": true, "device": {...}}. `--profile PATH` also
 writes a torch.profiler summary of one batch of each timed configuration,
 of 20 MH steps in each perf mode and of 2 HMC steps to PATH.
 """
@@ -278,6 +311,163 @@ GRAD_GOLDENS = {
          -291.18816469237646]],
 }
 
+# Phase 13: victor_tpu's values on the CPU in f64, recomputed and compared
+# with these literals by tests/test_torch_hessian.py (HESS_GOLDENS,
+# ESM_HESS_GOLDENS) and tests/test_torch_optimize.py (the others). HESS_GOLDENS: -jax.hessian of
+# lnL (= -Hessian of ln post under the uniform priors) of each GRAD_CASES
+# case at [GOLDEN, DISPLACED], AD-resolved modes.
+HESS_GOLDENS = {
+    'streaming': [
+        [[642.1986293115659, -168.68823733978428, -0.3743719623414888,
+          923.6430987435077],
+         [-168.68823733978073, 12679.473342635963, -0.936086212980946,
+          -2561.7148533021173],
+         [-0.37437196234149095, -0.9360862129809435, 0.0007671003138827607,
+          -0.11559389338885939],
+         [923.6430987435047, -2561.714853302119, -0.11559389338885946,
+          11608.888358023018]],
+        [[569.3944630100907, -55.326208468988476, -0.26223370322211703,
+          667.5567789419035],
+         [-55.32620846898425, 36609.143257488824, 0.09300310335710965,
+          -1195.945512474622],
+         [-0.2622337032221167, 0.09300310335710726, 0.0003716740685949021,
+          -0.0206144898029752],
+         [667.556778941906, -1195.9455124746237, -0.02061448980297397,
+          8836.736224733444]]],
+    "dispersion, final 'fast'": [
+        [[642.3892325548452, -166.10959758180542, -0.37453541401738616,
+          924.6650486364202],
+         [-166.10959758180886, 12291.13888633034, -0.936815934585301,
+          -2568.656337420433],
+         [-0.3745354140173869, -0.9368159345852991, 0.0007683288441190633,
+          -0.12017215258219505],
+         [924.6650486364206, -2568.6563374204316, -0.12017215258219578,
+          11613.08466072698]],
+        [[569.4705225138317, -55.31490098597439, -0.26238610774006604,
+          668.6188298033003],
+         [-55.314900985976735, 36610.04926219549, 0.09570613904650861,
+          -1202.4244246258354],
+         [-0.2623861077400651, 0.09570613904650926, 0.00037135790767175774,
+          -0.02463094561825674],
+         [668.6188298033017, -1202.424424625832, -0.024630945618261946,
+          8837.660698718339]]],
+    "dispersion, final 'exact'": [
+        [[642.3777472441647, -165.9611692797953, -0.3745296029646979,
+          924.696978321133],
+         [-165.96116927979622, 12278.20975997514, -0.937200089814602,
+          -2569.1159655919555],
+         [-0.37452960296469984, -0.9372000898146062, 0.0007683569576801465,
+          -0.12054853689332923],
+         [924.6969783211351, -2569.1159655919537, -0.12054853689332538,
+          11614.210277672777]],
+        [[569.4493390927818, -55.1254381950749, -0.2623627174971978,
+          668.6998768620799],
+         [-55.12543819507273, 36591.2247190909, 0.09420474943870803,
+          -1203.3630845797773],
+         [-0.26236271749719764, 0.09420474943871326, 0.0003713874771726516,
+          -0.02517229824709455],
+         [668.6998768620801, -1203.3630845797745, -0.025172298247093047,
+          8837.565152426852]]],
+    'kaiser': [
+        [[659.173385851599, -445.0571345686005, 0.0, 941.784527645065],
+         [-445.0571345686008, -30519.30064489488, 0.0, -2950.410388418944],
+         [0.0, 0.0, 0.0, 0.0],
+         [941.7845276450654, -2950.4103884189467, 0.0, 11654.158095857658]],
+        [[569.6048510591211, -96.3247799846161, 0.0, 632.5059582738215],
+         [-96.32477998461587, 32520.139102532616, 0.0, -1039.3608829195698],
+         [0.0, 0.0, 0.0, 0.0],
+         [632.505958273822, -1039.3608829195746, 0.0, 8665.851637691514]]],
+    'assume_isotropic=False': [
+        [[638.3700404034586, -320.77098972260586, -0.37623241601784235,
+          908.9309016923946],
+         [-320.7709897226036, 11825.943019072174, -0.8083374737524004,
+          -1309.6665583003985],
+         [-0.37623241601784185, -0.8083374737523985, 0.0007546250962302044,
+          -0.10370979413271719],
+         [908.930901692395, -1309.6665583003971, -0.10370979413271668,
+          11583.080310368505]],
+        [[565.7246535859465, -194.11002282972404, -0.25888338202528927,
+          647.1911437613155],
+         [-194.11002282972336, 38980.94991208428, 0.15570057008176974,
+          -183.31550432793722],
+         [-0.25888338202529093, 0.15570057008176974, 0.00038669882065191837,
+          -0.028773764522212808],
+         [647.1911437613117, -183.3155043279408, -0.028773764522209835,
+          8544.899128462532]]],
+}
+# victor_tpu find_map of configs/boss_sampling_config.yaml: the best fit
+# (NAMES order), chi2 and the Laplace sigmas
+FIT_GOLDENS = {'theta': [0.5799713488435827, 0.367701895106246,
+                         429.81188080886545, 1.0082034252665462],
+               'chi2': 56.95885572744639,
+               'std': [0.05683596955024076, 0.0069556641895644694,
+                       48.379437821201236, 0.010332906459898492]}
+# victor_tpu's Fisher sigmas at the config's ref point (`forecast`)
+FISHER_GOLDENS = [0.05045857861722795, 0.004714197549035467, 44.34503424818853,
+                  0.010073282684302739]
+# victor_tpu's profile of fsigma8 on the CLI's default grid (9 points,
+# MAP +/- 4 Laplace sigmas): the grid and the profile chi2
+SCAN_GOLDENS = {'grid': [0.3526274706426197, 0.4094634401928604,
+                         0.4662994097431012, 0.523135379293342,
+                         0.5799713488435827, 0.6368073183938234,
+                         0.6936432879440642, 0.750479257494305,
+                         0.8073152270445457],
+                'chi2': [76.83089817150605, 67.79273851028728,
+                         61.64489713765245, 58.122087916900185,
+                         56.9588557314523, 57.893546220569036,
+                         60.66152080896403, 65.9759581044858, 74.30866774169687]}
+# victor_tpu's four refits of `fit --bootstrap 4` (seed 0: the mocks of
+# np.random.default_rng(0) at its MAP), NAMES order
+BOOT_GOLDENS = [[0.6081554736566837, 0.3663530173694129, 446.0569533626983,
+                 1.0036276745074975],
+                [0.5059848648152485, 0.36565969319344394, 393.79554773325964,
+                 1.014112416348316],
+                [0.6394516241451499, 0.36970143422831137, 446.89552574432594,
+                 1.0218510136503545],
+                [0.5372849175370796, 0.357364355328475, 397.49583179652825,
+                 1.0063936251351693]]
+# -jax.hessian of lnL of configs/esm_sampling_config.yaml at ESM_REF (9 x 9)
+ESM_HESS_GOLDENS = [[232.27223452549725, 309.0610431653943,
+                     -15.692467683961878, -22.70780039479483,
+                     -13.190541698763576, 215.81392616855143,
+                     -414.64073958701846, -0.2186136019556503,
+                     451.1041442982507],
+                    [309.0610431653956, 616.2391300835678, -30.073646986724658,
+                     -37.45106354443181, -13.943250670249563, 228.2492352833239,
+                     -642.1358858308531, -0.33532482582226675,
+                     862.4724021177055],
+                    [-15.692467683961961, -30.073646986724512,
+                     4.605504731280732, 2.944518696817985, -2.087657048324395,
+                     34.12021922508835, 22.663091696356826,
+                     0.011320894147377443, -85.4768329168829],
+                    [-22.70780039479482, -37.451063544431335,
+                     2.9445186968179744, 3.698246855284093, 1.4351900383608445,
+                     -23.48936067722111, 48.398421011768434,
+                     0.025113671448525075, -57.07700103512196],
+                    [-13.190541698763587, -13.943250670249368,
+                     -2.0876570483243433, 1.4351900383608458, 5.968401204166719,
+                     -90.60415424213254, 44.61932073652954,
+                     0.023471795740872603, 28.403523030144115],
+                    [215.81392616855072, 228.2492352833135, 34.120219225087965,
+                     -23.489360677220596, -90.60415424213272,
+                     1351.5268770471166, -729.6994771029265,
+                     -0.38384576940632475, -464.165242021047],
+                    [-414.6407395870184, -642.1358858307909,
+                     22.663091696357437, 48.39842101176829, 44.619320736529914,
+                     -729.6994771029441, 18002.307441817884,
+                     0.08013603948461291, 565.9767202015161],
+                    [-0.2186136019556505, -0.335324825822261,
+                     0.011320894147377025, 0.025113671448525166,
+                     0.023471795740872797, -0.383845769406322,
+                     0.08013603948461423, 0.0006817662069136757,
+                     0.012553850458274063],
+                    [451.1041442982487, 862.4724021176961, -85.47683291688276,
+                     -57.07700103512178, 28.403523030143788,
+                     -464.16524202100663, 565.9767202015157,
+                     0.012553850458271024, 11004.23379071277]]
+# Phase 13g: the ESM fit's starts, cut from the CLI's 32 to fit the time
+ESM_FIT_STARTS = 8
+
 
 def check(ok, what):
     if not ok:
@@ -373,14 +563,16 @@ def host_us(fn, calls=1000, chunk=100):
     return 1e6 * total / (calls // chunk * chunk)
 
 
-def time_in_turns(label, kernel, plain):
+def time_in_turns(label, kernel, plain, reps=(50, PLAIN_REPS)):
     """Device-only milliseconds per call of a kernel and its plain version,
     timed in turns (kernel, plain, plain, kernel) so drift hits both alike,
-    and the kernel wrapper's host microseconds per call."""
-    k1, p1, p2, k2 = (device_ms(kernel), device_ms(plain, PLAIN_REPS),
-                      device_ms(plain, PLAIN_REPS), device_ms(kernel))
+    and the kernel wrapper's host microseconds per call. `reps`: the calls
+    of each reading, few enough that their launches fit the launch queue;
+    the host time queues a fifth of the kernel's reps at a time."""
+    k1, p1, p2, k2 = (device_ms(kernel, reps[0]), device_ms(plain, reps[1]),
+                      device_ms(plain, reps[1]), device_ms(kernel, reps[0]))
     ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
-    us = host_us(kernel)
+    us = host_us(kernel, calls=20 * reps[0], chunk=2 * reps[0])
     print(f'  {label}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms (device '
           f'only); host {us:.2f} us per kernel call', flush=True)
     return ms_k, ms_p, us
@@ -441,11 +633,11 @@ def compare_outputs(label, out_k, out_p, dtype):
     return err
 
 
-def timed(label, err, kernel, plain, n_bytes, ops):
+def timed(label, err, kernel, plain, n_bytes, ops, reps=(50, PLAIN_REPS)):
     """A comparison's result: the max abs error, the kernel's and the plain
     version's device-only ms, the kernel wrapper's host us per call, and the
     bytes and operations of one call (for its bound)."""
-    ms, plain_ms, us = time_in_turns(label, kernel, plain)
+    ms, plain_ms, us = time_in_turns(label, kernel, plain, reps)
     return {'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms,
             'host_us': us, 'bytes': n_bytes, 'ops': ops}
 
@@ -1713,11 +1905,536 @@ def hmc_rates(bundle, card, profile_path):
                                            row_limit=30) + '\n')
 
 
-def kernel_row(name, source, replaces, launches, result, dtype):
+# ---------------------------------------------------------------------------
+# Phase 13: second derivatives and the optimizer layer
+# ---------------------------------------------------------------------------
+
+def second_order_ops(n, K):
+    """Operations per query of the composed second-order terms: two forward
+    and three backward launches' work, and the elementwise products and
+    the clip factor around them (about 16)."""
+    return 2 * ppoly_ops(n, K) + 3 * bwd_ops(n, K) + 16
+
+
+def second_order_plain(x, c, q, g, u, V, clamp, wants):
+    """The plain version of the second-order terms: autograd with
+    create_graph=True through ppoly_eval_backward_plain, the gradient of
+    <u, dq> + <V, dcoeffs> to (coeffs, q, grad_out) where `wants` says so
+    (None elsewhere; zeros where the gradient does not reach)."""
+    import torch
+    from victor_tpu_torch.kernels.ppoly import ppoly_eval_backward_plain
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_(w) for a, w in zip((c, q, g),
+                                                               wants)]
+        dq, dc = ppoly_eval_backward_plain(x, *leaves, clamp)
+        s = sum((d * w).sum() for d, w in ((dq, u), (dc, V)) if w is not None)
+        asked = [a for a, w in zip(leaves, wants) if w]
+        grads = iter(torch.autograd.grad(s, asked, allow_unused=True))
+    out = []
+    for a, w in zip(leaves, wants):
+        d = next(grads) if w else None
+        out.append(torch.zeros_like(a) if w and d is None else d)
+    return out
+
+
+def second_order_scales(x, c, q, g, u, clamp):
+    """The scale of each d/dcoeffs entry (f64): (0, A_0, 2 A_1, 3 A_2) with
+    A the summed magnitudes of the coefficient terms under the grad
+    |u c(q) g|."""
+    import torch
+    from victor_tpu_torch.kernels.ppoly import clip_factor
+    if u is None:
+        return torch.zeros_like(c, dtype=torch.float64)
+    x, q = x.double(), q.double()
+    w = (u.double() * (clip_factor(x, q) if clamp else 1.0)).abs()
+    w = w[:, None] * g.double().abs() if c.ndim == 4 else w * g.double().abs()
+    A = abs_terms(x, c, q, w, clamp)
+    return torch.stack([torch.zeros_like(A[..., 0]), A[..., 0],
+                        2.0 * A[..., 1], 3.0 * A[..., 2]], -1)
+
+
+def compare_second_order(label, x, c, q, g, u, V, clamp, wants,
+                         time_it=False):
+    """The second-order terms on the card (ppoly_eval_second_order: the
+    forward and backward kernels on derived tables) against their plain
+    version (in f64) on the same inputs: NaN and inf positions identical
+    (d/dq and d/dgrad_out NaN at an infinite query without clamp, the
+    port's rule where its forward is NaN), d/dq and d/dgrad_out within TOL
+    x their largest entry, d/dcoeffs within
+    TOL x the summed magnitudes of its terms; a second call gives the same
+    bits. Returns `timed`'s result when `time_it`, else the max abs
+    error."""
+    import torch
+    from victor_tpu_torch.kernels.ppoly import ppoly_eval_second_order
+
+    def kernel():
+        return ppoly_eval_second_order(x, c, q, g, u, V, clamp, *wants)
+
+    got, again = kernel(), kernel()
+    f64 = [None if a is None else a.double() for a in (x, c, q, g, u, V)]
+    want = second_order_plain(*f64, clamp, wants)
+    if not clamp:
+        # the port's rule at an infinite query without clamp, where the
+        # forward is NaN: d/dq and d/dgrad_out are NaN there
+        inf = torch.isinf(q)
+        want[1:] = [None if w is None else torch.where(
+            inf if w.shape == q.shape else inf[:, None], math.nan, w)
+            for w in want[1:]]
+    torch.cuda.synchronize()
+    tol = TOL[str(q.dtype)[6:]]
+    scales = (second_order_scales(x, c, q, g, u, clamp), None, None)
+    err = 0.0
+    for what, k, p, k2, scale in zip(('d/dcoeffs', 'd/dq', 'd/dgrad_out'),
+                                     got, want, again, scales):
+        if p is None:
+            check(k is None, f'{label}: no {what} when not asked for')
+            continue
+        k = torch.zeros_like(p) if k is None else k.double()
+        k2 = torch.zeros_like(p) if k2 is None else k2.double()
+        check(torch.equal(torch.isnan(k), torch.isnan(p)) and
+              torch.equal(torch.isinf(k), torch.isinf(p)),
+              f'{label} {what}: NaN and inf positions identical')
+        fin = torch.isfinite(p)
+        d = (k - p)[fin].abs()
+        top = float(p[fin].abs().max()) if d.numel() else 0.0
+        bound = tol * (scale[fin] if scale is not None else top)
+        worst = float((d - bound).max()) if d.numel() else -1.0
+        check(worst <= 1e-300, f'{label} {what}: max|kernel - plain| = '
+                               f'{float(d.max()) if d.numel() else 0.0:.3e} '
+                               f'within {tol:g} x its scale')
+        check(torch.equal(torch.nan_to_num(k2), torch.nan_to_num(k)),
+              f'{label} {what}: two calls, the same bits')
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    if not time_it:
+        return err
+    K = c.shape[1] if c.ndim == 4 else 1
+    outs = [a for a in got if a is not None]
+    ins = [a for a in (x, c, q, g, u, V) if a is not None]
+    return timed(label, err, kernel,
+                 lambda: second_order_plain(x, c, q, g, u, V, clamp, wants),
+                 nbytes(*ins, *outs), q.numel() * second_order_ops(
+                     x.shape[0], K), reps=(10, 3))
+
+
+def cotangents(c, q, gen):
+    import torch
+    return (torch.randn(q.shape, generator=gen, device='cuda',
+                        dtype=torch.float64).to(q.dtype),
+            torch.randn(c.shape, generator=gen, device='cuda',
+                        dtype=torch.float64).to(c.dtype))
+
+
+def lookup_key(c, clamp):
+    """Which spline lookup a second-order call serves, whatever its batch:
+    the coefficient table's shape past its rows, and the clamp."""
+    return tuple(c.shape[1:]), clamp
+
+
+def second_order_phase(bundle, gen):
+    """Phase 13a: the second-order terms on the card against their plain
+    version at the three lookups of one Hessian of the BOSS streaming
+    target (captured: 4 replicated rows of one point), at K = 2 and 3 over
+    (8, 150000) and at EDGE_CASES, in f64 and f32, every comparison twice
+    for the same bits. Returns {lookup_key: (label, timed result)} of the
+    Hessian's lookups."""
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.sampling.optimize import value_grad_hessian
+
+    calls = []
+    real = ppoly.ppoly_eval_second_order
+
+    def record(x, c, q, g, u, V, clamp=True, *wants):
+        calls.append(tuple(None if t is None else t.detach()
+                           for t in (x, c, q, g, u, V)) + (clamp, wants))
+        return real(x, c, q, g, u, V, clamp, *wants)
+
+    space, logpost_y = boss_logpost(bundle)
+    y0, _ = hmc_start(space, n_chains=1)
+    ppoly.ppoly_eval_second_order = record
+    try:
+        value_grad_hessian(lambda y: -logpost_y(y)[0], y0)
+    finally:
+        ppoly.ppoly_eval_second_order = real
+    torch.cuda.synchronize()
+    check(len(calls) == 3, f'one Hessian of the BOSS target: {len(calls)} '
+                           'second-order calls (3: sigma_v, v_r, xi_0)')
+    print('compare the ppoly_eval second-order terms vs plain:', flush=True)
+    results = {}
+    for x, c, q, g, u, V, clamp, wants in calls:
+        label = (f'second order on the Hessian path: coeffs='
+                 f'{tuple(c.shape)} q={tuple(q.shape)} clamp={clamp} '
+                 f'u={u is not None} V={V is not None} wants={wants}')
+        results[lookup_key(c, clamp)] = label, compare_second_order(
+            label, x, c, q, g, u, V, clamp, wants, time_it=True)
+    for dtype in (torch.float64, torch.float32):
+        for K, shared in ((2, False), (3, False), (2, True), (3, True)):
+            x, c, q = edge_inputs(8, N_POINTS, 30, K, shared, 0, dtype, gen)
+            u, V = cotangents(c, q, gen)
+            compare_second_order(f'second order K={K} coeffs='
+                                 f'{tuple(c.shape)} q={tuple(q.shape)} '
+                                 f'{str(dtype)[6:]}', x, c, q,
+                                 grad_out_like(q, K, gen), u, V, True,
+                                 (True, True, True))
+        for label, B, M, n, K, shared, clamp, offset in EDGE_CASES:
+            x, c, q = edge_inputs(B, M, n, K, shared, offset, dtype, gen)
+            u, V = cotangents(c, q, gen)
+            compare_second_order(f'second order edge: {label}: '
+                                 f'q={tuple(q.shape)} coeffs='
+                                 f'{tuple(c.shape)} {str(dtype)[6:]} '
+                                 f'clamp={clamp}', x, c, q,
+                                 grad_out_like(q, K, gen), u, V, clamp,
+                                 (True, True, True))
+    return results
+
+
+def neg_loglike_hessian(bundle, kw, points):
+    """-Hessian of lnL (AD-resolved modes) at `points` (P, 4) on the card,
+    by replicated rows (sampling.optimize.value_grad_hessian)."""
+    import torch
+    from victor_tpu_torch.sampling.optimize import value_grad_hessian
+    from victor_tpu_torch.sampling.targets import resolve_target
+    tables, loglike = resolve_target(bundle, kw or None, None,
+                                     gradient_free=False)
+
+    def neg(th):
+        return -loglike(tables, {k: th[:, i] for i, k in
+                                 enumerate(NAMES)})[0]
+    th = torch.tensor(points, dtype=torch.float64, device='cuda')
+    return value_grad_hessian(neg, th)[2]
+
+
+def hessian_checks(bundle, card):
+    """Phase 13b: -Hessians of lnL of GRAD_CASES at GOLDEN and DISPLACED
+    against victor_tpu's jax.hessian (HESS_GOLDENS) within 1e-8 of max|H|;
+    then one Hessian of the streaming case timed (wall, and device time
+    under torch.profiler), its second-order launches and its peak device
+    memory."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from victor_tpu_torch.kernels import ppoly
+
+    for name, kw in GRAD_CASES.items():
+        H = neg_loglike_hessian(bundle, kw, [GOLDEN, DISPLACED]).cpu().numpy()
+        want = np.array(HESS_GOLDENS[name])
+        err = max(float(np.abs(h - w).max() / np.abs(w).max())
+                  for h, w in zip(H, want))
+        check(np.isfinite(H).all() and err <= 1e-8,
+              f'-Hessian of lnL ({name}) at the golden and displaced points: '
+              f'max error {err:.3e} of max|H| against jax.hessian (<= 1e-8)')
+    neg_loglike_hessian(bundle, {}, [GOLDEN])          # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ppoly.LAUNCHES_2ND = 0
+    t0 = time.perf_counter()
+    neg_loglike_hessian(bundle, {}, [GOLDEN])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ppoly.LAUNCHES_2ND
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        neg_loglike_hessian(bundle, {}, [GOLDEN])
+        torch.cuda.synchronize()
+    device_us = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+    check(launches > 0, f'second-order kernel launches per Hessian '
+                        f'(streaming, one point): {launches}')
+    print(f'  one 4 x 4 Hessian (streaming, one point, 4 replicated rows): '
+          f'{1e3 * wall:.2f} ms wall, {device_us / 1e3:.2f} ms of kernels '
+          f'under torch.profiler, {launches} second-order launches, peak '
+          f'{peak:.2f} GiB on {card}', flush=True)
+
+
+class Captured:
+    """Record the arguments and results of a function of
+    victor_tpu_torch.sampling.optimize while a CLI command runs in this
+    process (the CLI imports it at call time), so that the script reads the
+    unrounded results."""
+
+    def __init__(self, name):
+        from victor_tpu_torch.sampling import optimize
+        self.module, self.name = optimize, name
+        self.real = getattr(optimize, name)
+        self.calls, self.results = [], []
+
+    def __enter__(self):
+        def wrapped(*args, **kw):
+            res = self.real(*args, **kw)
+            self.calls.append((args, kw))
+            self.results.append(res)
+            return res
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def check_map(res, what):
+    """A MAP result against FIT_GOLDENS at full precision: theta within
+    1e-4 Laplace sigma, chi2 within 1e-6, each sigma within 1e-6 relative,
+    stationary (grad_norm < 1e-6) and a positive definite Hessian."""
+    import numpy as np
+    sd = np.array(FIT_GOLDENS['std'])
+    # by name: the CLI's YAML round-trip sorts the params block
+    order = [res.space.names.index(n) for n in NAMES]
+    theta, cov = res.theta[order], res.cov[np.ix_(order, order)]
+    dth = float(np.max(np.abs(theta - FIT_GOLDENS['theta']) / sd))
+    dchi = abs(res.chi2 - FIT_GOLDENS['chi2'])
+    dsd = float(np.max(np.abs(np.sqrt(np.diag(cov)) / sd - 1.0)))
+    check(dth <= 1e-4 and dchi <= 1e-6 and dsd <= 1e-6 and
+          res.grad_norm < 1e-6 and res.hessian_pd,
+          f'{what}: theta within {dth:.2e} sigma (<= 1e-4), chi2 '
+          f'{res.chi2:.8f} ({FIT_GOLDENS["chi2"]:.8f}), sigma within '
+          f'{dsd:.2e} (<= 1e-6), |grad| {res.grad_norm:.2e} (< 1e-6), '
+          f'Hessian positive definite: {res.hessian_pd}')
+
+
+def start_fit_cli(tmp):
+    """Phase 13c, started beside phase 12d (its host-bound HMC run leaves
+    the card and most host cores idle): `python -m victor_tpu_torch fit
+    configs/boss_sampling_config.yaml` with its defaults in a subprocess,
+    the README's .npz --set lines and --covmat-out. Returns what
+    `finish_fit_cli` reads."""
+    stem = 'data/BOSS_DR12_CMASS_npz/CMASS_zobovVoids_reconRs10_0.43z0.7_' \
+        'medianRvcut'
+    covmat = os.path.join(tmp, 'fit.covmat')
+    argv = [sys.executable, '-m', 'victor_tpu_torch', 'fit',
+            'configs/boss_sampling_config.yaml',
+            '--set', f'model.input_model_data_file={stem}_PatchyMean_model.npz',
+            '--set', f'data.redshift_space_ccf.data_file={stem}_data.npz',
+            '--set', 'data.covariance_matrix.data_file='
+                     f'{stem}_variable_D_covariance.npz',
+            '--covmat-out', covmat]
+    env = {**os.environ, 'PYTHONPATH': os.pathsep.join(
+        [REPO] + ([os.environ['PYTHONPATH']] if 'PYTHONPATH' in os.environ
+                  else []))}
+    # into files, not pipes: nobody reads a pipe while phase 12d runs
+    logs = [open(os.path.join(tmp, f'fit.{k}'), 'w+') for k in ('out', 'err')]
+    proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=logs[0],
+                            stderr=logs[1], text=True)
+    return proc, covmat, logs
+
+
+def finish_fit_cli(started, timeout):
+    """Phase 13c: the `fit` subprocess's printed best fit, chi2 and Laplace
+    sigmas against FIT_GOLDENS at the JSON's rounding, stationary, a
+    Laplace evidence (a positive definite Hessian), and the covmat file
+    read back as those sigmas."""
+    import numpy as np
+    from victor_tpu_torch.sampling.chains import read_covmat
+    proc, covmat, logs = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError('chip_smoke: the fit subprocess did not finish '
+                           f'within {timeout} s')
+    for f in logs:
+        f.seek(0)
+    stdout, stderr = (f.read() for f in logs)
+    for f in logs:
+        f.close()
+    if proc.returncode != 0:
+        raise RuntimeError('chip_smoke: `python -m victor_tpu_torch fit` '
+                           f'exited {proc.returncode}:\n{stderr[-4000:]}')
+    out = json.loads(stdout)
+    sd = np.array(FIT_GOLDENS['std'])
+    names = list(out['best_fit'])
+    theta = np.array([out['best_fit'][n] for n in NAMES])
+    check(names == NAMES, f'fit: the parameters {names}')
+    dth = float(np.max((np.abs(theta - FIT_GOLDENS['theta']) - 5e-7) / sd))
+    check(dth <= 1e-4, f'fit: best fit {out["best_fit"]} within '
+                       f'{max(dth, 0.0):.2e} Laplace sigma of victor_tpu '
+                       'beyond its rounding (<= 1e-4)')
+    check(abs(out['chi2'] - FIT_GOLDENS['chi2']) <= 5e-5 + 1e-6,
+          f'fit: chi2 {out["chi2"]} ({FIT_GOLDENS["chi2"]:.6f}) within 1e-6 '
+          'beyond its rounding to 4 places')
+    check(out['grad_norm'] < 1e-6 and
+          out['log_evidence_laplace'] is not None,
+          f'fit: |grad| {out["grad_norm"]:.2e} (< 1e-6), Laplace evidence '
+          f'{out["log_evidence_laplace"]} (a positive definite Hessian)')
+    cov = read_covmat(covmat, NAMES)
+    file_sd = np.sqrt(np.diag(cov))
+    dsd = float(np.max(np.abs(file_sd / sd - 1.0)))
+    check(dsd <= 1e-6 and np.allclose(
+        file_sd, [out['std_laplace'][n] for n in NAMES], rtol=0, atol=5e-7),
+        f'fit --covmat-out: the file reads back as the Laplace covariance '
+        f'(sigmas within {dsd:.2e} of victor_tpu, <= 1e-6; as printed)')
+    print(f'  fit subprocess (32 starts, 250 Adam steps, 8 Newton steps, '
+          f'beside phase 12d): the fit {out["elapsed_s"]} s', flush=True)
+
+
+def forecast_check(path):
+    """Phase 13d: `forecast` at the config's ref point through the CLI's
+    main: each Fisher sigma against victor_tpu's (FISHER_GOLDENS) within
+    1e-8 relative."""
+    import numpy as np
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Captured('fisher_forecast') as cap:
+        out = cli_json(['forecast', path])
+    wall = time.perf_counter() - t0
+    got = np.array([cap.results[0].std[n] for n in NAMES])
+    rel = float(np.max(np.abs(got / FISHER_GOLDENS - 1.0)))
+    check(rel <= 1e-8, f'forecast at {out["fiducial"]}: sigma_fisher '
+                       f'{out["sigma_fisher"]} within {rel:.2e} of '
+                       'victor_tpu (<= 1e-8)')
+    print(f'  forecast: {wall:.2f} s, peak '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB', flush=True)
+    return wall
+
+
+def scan_check(path):
+    """Phase 13e: `scan --param fsigma8 --ngrid 9` through the CLI's main:
+    its MAP (32 starts, 150 Adam steps) against FIT_GOLDENS, the profile's
+    minimum at the MAP's chi2 within 1e-6, and every grid point and its
+    profile chi2 against victor_tpu's (SCAN_GOLDENS) within 1e-5."""
+    import numpy as np
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Captured('profile_scan') as cap:
+        out = cli_json(['scan', path, '--param', 'fsigma8', '--ngrid', '9'])
+    wall = time.perf_counter() - t0
+    res = cap.results[0]
+    check_map(res.map_result, 'scan: the MAP')
+    dmin = abs(float(res.chi2.min()) - res.map_result.chi2)
+    check(dmin <= 1e-6, f'scan: the profile minimum {res.chi2.min():.8f} is '
+                        f'the MAP chi2 {res.map_result.chi2:.8f} within '
+                        f'{dmin:.2e} (<= 1e-6)')
+    dgrid = float(np.max(np.abs(res.grid[:, 0] - SCAN_GOLDENS['grid'])))
+    dchi = float(np.max(np.abs(res.chi2 - SCAN_GOLDENS['chi2'])))
+    check(dgrid <= 1e-6 and dchi <= 1e-5,
+          f'scan: grid within {dgrid:.2e} (<= 1e-6) and every profile chi2 '
+          f'within {dchi:.2e} (<= 1e-5) of victor_tpu; intervals '
+          f'{out["interval_68"]}, {out["interval_95"]}')
+    print(f'  scan: {wall:.2f} s, peak '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB', flush=True)
+    return wall
+
+
+def bootstrap_check(path):
+    """Phase 13f: `fit --bootstrap 4` through the CLI's main, with the
+    launch counts set to 0 just before: the fit against FIT_GOLDENS at full
+    precision; every refit finite, within 1e-4 Laplace sigma of
+    victor_tpu's refit of the same mock (BOOT_GOLDENS) and polished
+    (|grad| < 1e-3); bias and sigma (information). Returns the launches (forward, backward, second
+    order) and, by lookup_key, the second-order calls and the kernel
+    launches they made."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+    per_lookup = {}
+    real = ppoly.ppoly_eval_second_order
+
+    def count(x, c, q, g, u, V, clamp=True, *wants):
+        before = ppoly.LAUNCHES_2ND
+        out = real(x, c, q, g, u, V, clamp, *wants)
+        key = lookup_key(c, clamp)
+        calls, launches = per_lookup.get(key, (0, 0))
+        per_lookup[key] = calls + 1, launches + ppoly.LAUNCHES_2ND - before
+        return out
+
+    torch.cuda.synchronize()
+    ppoly.LAUNCHES = ppoly.LAUNCHES_BWD = ppoly.LAUNCHES_2ND = 0
+    ppoly.ppoly_eval_second_order = count
+    t0 = time.perf_counter()
+    try:
+        with Captured('find_map') as cap:
+            out = cli_json(['fit', path, '--bootstrap', '4'])
+        torch.cuda.synchronize()
+    finally:
+        ppoly.ppoly_eval_second_order = real
+    wall = time.perf_counter() - t0
+    launches = (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND)
+    main, refits = cap.results[0], cap.results[1:]
+    check_map(main, 'fit (in process)')
+    sd = np.array(FIT_GOLDENS['std'])
+    dev = [float(np.max(np.abs(np.array([r.params[n] for n in NAMES]) - want)
+                        / sd)) for r, want in zip(refits, BOOT_GOLDENS)]
+    check(len(refits) == 4 and all(np.isfinite(r.theta).all()
+                                   for r in refits) and max(dev) <= 1e-4 and
+          max(r.grad_norm for r in refits) < 1e-3,
+          'fit --bootstrap 4: every refit finite and at victor_tpu\'s refit '
+          f'of the same mock (BOOT_GOLDENS) within {max(dev):.2e} Laplace '
+          f'sigma (<= 1e-4); |grad| {[f"{r.grad_norm:.1e}" for r in refits]}'
+          ' (< 1e-3: polished; a Newton step whose gain is under the float '
+          'resolution is rejected, as in victor_tpu)')
+    b = out['bootstrap']
+    check(all(math.isfinite(v) for d in (b['bias'], b['std_bootstrap'])
+              for v in d.values()),
+          f'fit --bootstrap 4: bias {b["bias"]}, sigma {b["std_bootstrap"]} '
+          'finite')
+    check(all(n > 0 for n in launches),
+          f'fit --bootstrap 4 launched the forward ({launches[0]}), backward '
+          f'({launches[1]}) and second-order ({launches[2]}) kernels')
+    print(f'  fit --bootstrap 4: {wall:.2f} s; second-order calls and '
+          f'kernel launches by lookup {per_lookup}', flush=True)
+    return launches, per_lookup
+
+
+def esm_fit_check(esm_cfg, esm_bundle, tmp):
+    """Phase 13g: `fit` of configs/esm_sampling_config.yaml in f64 through
+    the CLI's main (starts cut to 8): the exact Hessian at the fit's optimum
+    finite (so find_map's finite-difference fallback, whose condition that
+    is, was not taken) and positive definite; then the 9 x 9 -Hessian of lnL
+    at the ESM ref point against victor_tpu's (ESM_HESS_GOLDENS) within 1e-7
+    of max|H|."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.sampling.optimize import (_make_objectives,
+                                                    value_grad_hessian)
+    from victor_tpu_torch.sampling.targets import resolve_target
+
+    path = write_yaml(esm_cfg, os.path.join(tmp, 'esm_sampling.yaml'))
+    t0 = time.perf_counter()
+    with Captured('find_map') as cap:
+        cli_json(['fit', path, '--starts', str(ESM_FIT_STARTS)])
+    wall = time.perf_counter() - t0
+    res = cap.results[0]
+    (fit_bundle, *_), kw = cap.calls[0]
+    _, lnpost_theta, _, _ = _make_objectives(
+        fit_bundle, res.space, kw.get('opts_kw'), kw.get('fit_kw'))
+    H_fit = value_grad_hessian(lambda t: -lnpost_theta(t), torch.tensor(
+        res.theta[None], dtype=torch.float64, device='cuda'))[2]
+    exact = bool(torch.isfinite(H_fit).all())
+    check(exact and np.isfinite(res.cov).all() and res.hessian_pd,
+          f'ESM fit ({ESM_FIT_STARTS} starts, f64): the exact 9 x 9 Hessian '
+          f'at the optimum finite ({exact}: no finite-difference fallback), '
+          f'chi2 {res.chi2:.4f}, |grad| {res.grad_norm:.2e}, positive '
+          'definite')
+    names = list(esm_cfg['params'])
+    tables, loglike = resolve_target(esm_bundle, None, None,
+                                     gradient_free=False)
+
+    def neg(th):
+        return -loglike(tables, {k: th[:, i] for i, k in
+                                 enumerate(names)})[0]
+    ref = torch.tensor([[ESM_REF[k] for k in names]], dtype=torch.float64,
+                       device='cuda')
+    H = value_grad_hessian(neg, ref)[2][0].cpu().numpy()
+    want = np.array(ESM_HESS_GOLDENS)
+    err = float(np.abs(H - want).max() / np.abs(want).max())
+    check(np.isfinite(H).all() and err <= 1e-7,
+          f'ESM 9 x 9 -Hessian at the ref point: max error {err:.3e} of '
+          'max|H| against jax.hessian (<= 1e-7)')
+    print(f'  ESM fit: {wall:.2f} s', flush=True)
+    return wall
+
+
+def kernel_row(name, source, replaces, launches, result, dtype,
+               calls=None):
     """One entry of the kernels summary line from a comparison's `timed`
     result (device-only ms, host us per call; the sampler's row also its L2
-    warm reading, its `ms` being the cold one). No single PyTorch call
-    computes either kernel's function, so library_ms is null."""
+    warm reading, its `ms` being the cold one; a composed row also its
+    `calls`, `ms` being one call). No single PyTorch call computes either
+    kernel's function, so library_ms is null."""
     bound_ms, bound_by = bound(result['bytes'], result['ops'], dtype)
     row = {'name': name, 'route': 'cuda',
            'source': f'victor_tpu_torch/kernels/csrc/{source}',
@@ -1728,6 +2445,8 @@ def kernel_row(name, source, replaces, launches, result, dtype):
            'host_us': result['host_us']}
     if 'warm_ms' in result:
         row.update(cold_ms=result['ms'], warm_ms=result['warm_ms'])
+    if calls is not None:
+        row['calls'] = calls
     return row
 
 
@@ -1893,21 +2612,50 @@ def main() -> int:
     print('gradients: d lnL / d theta against jax.grad', flush=True)
     grad_checks(bundle)
     with tempfile.TemporaryDirectory() as tmp:
-        print('sampling: HMC through the CLI run, NUTS beside it', flush=True)
+        print('sampling: HMC through the CLI run, NUTS and phase 13c\'s '
+              'fit beside it', flush=True)
         t0 = time.perf_counter()
         child = start_nuts_child(tmp)
+        fit_child = start_fit_cli(tmp)
         try:
             hmc_launches, leapfrogs, hmc_s, hmc_draws, hmc_rm1 = hmc_cli(
                 cfg, tmp)
             print(f'  HMC phase: {time.perf_counter() - t0:.2f} s', flush=True)
             finish_nuts_child(child, timeout=600)
+            print('optimizers (13c): fit through the CLI in a subprocess',
+                  flush=True)
+            finish_fit_cli(fit_child, timeout=600)
         finally:
-            if child.poll() is None:
-                child.kill()
-                child.wait()
+            for proc in (child, fit_child[0]):
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         print(f'  HMC and NUTS phases: {time.perf_counter() - t0:.2f} s',
               flush=True)
     hmc_rates(bundle, card, args.profile)
+
+    # ---- 13. second derivatives and the optimizer layer ----
+    t13 = time.perf_counter()
+    print('second derivatives: the composed second-order terms', flush=True)
+    hess_results = second_order_phase(bundle, gen)
+    print('second derivatives: Hessians against jax.hessian', flush=True)
+    hessian_checks(bundle, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = write_yaml(load_config('boss_sampling_config.yaml'),
+                          os.path.join(tmp, 'boss_sampling.yaml'))
+        print('optimizers: forecast through the CLI', flush=True)
+        forecast_check(path)
+        print('optimizers: scan through the CLI', flush=True)
+        scan_check(path)
+        print('optimizers: fit --bootstrap 4 through the CLI', flush=True)
+        opt_launches, per_lookup = bootstrap_check(path)
+        check(all(per_lookup.get(key, (0, 0))[1] > 0 for key in hess_results),
+              'fit --bootstrap 4 launched the second-order kernels at each '
+              f'lookup of a Hessian: {sorted(per_lookup.values())} (calls, '
+              'launches)')
+        print('optimizers: the ESM fit through the CLI', flush=True)
+        esm_fit_check(esm_cfg, esm_bundle, tmp)
+    print(f'  phase 13: {time.perf_counter() - t13:.2f} s', flush=True)
 
     f64 = torch.float64
     print(f'card: {card}', flush=True)
@@ -1932,7 +2680,19 @@ def main() -> int:
                    f'; launches: all three lookups of the {hmc_draws + 300}'
                    f'-step run)', 'ppoly_eval.cu',
                    'victor_tpu/ops/splines.py:205', hmc_launches, res, f64)
-        for label, res in bwd_results.items()]}), flush=True)
+        for label, res in bwd_results.items()] + [
+        # the second derivatives compose the two kernels above on derived
+        # tables: jax.hessian of victor_tpu's ppoly_eval; launches: the
+        # kernel launches of this lookup's second-order calls in phase 13f's
+        # fit --bootstrap 4; calls: those calls, each timed as `ms`
+        kernel_row(f'ppoly_eval second order (forward and backward kernels '
+                   f'on derived tables), Hessian lookup '
+                   f'({label.split(": ")[1]}; launches: kernel launches at '
+                   f'this lookup in fit --bootstrap 4; calls: its composed '
+                   f'calls, each one `ms`)', 'ppoly_eval.cu',
+                   'victor_tpu/ops/splines.py:205', per_lookup[key][1], res,
+                   f64, calls=per_lookup[key][0])
+        for key, (label, res) in hess_results.items()]}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

@@ -1,9 +1,11 @@
-"""`python -m victor_tpu_torch` (run, eval, bench) against victor_tpu's CLI.
+"""`python -m victor_tpu_torch` (run, eval, fit, scan, forecast, bench)
+against victor_tpu's CLI.
 
 The port's `main([...,'--device', 'cpu'])` and victor_tpu's `main([...])`
 run on the same configs in one process; their JSON and their chain files
-are compared. Also recomputes the eval goldens that chip_smoke.py holds the
-card to.
+are compared. The optimizer commands build both packages' tables at a
+narrow width (the `narrow` fixture). Also recomputes the eval goldens that
+chip_smoke.py holds the card to.
 """
 
 import ast
@@ -211,13 +213,11 @@ def test_run_ensemble_and_cobaya_nesting(sampling_cfg, tmp_path, capsys):
     assert out['sampler'] == 'mh' and out['n_samples'] <= 6
 
 
-@pytest.mark.parametrize('how', ['smc', 'ns', 'minimize', 'polychord'])
+@pytest.mark.parametrize('how', ['smc', 'ns', 'polychord'])
 def test_unported_samplers_exit(sampling_cfg, tmp_path, how):
     cfg = copy.deepcopy(sampling_cfg)
     args = []
-    if how == 'minimize':
-        cfg['sampler'] = {'minimize': {}}
-    elif how == 'polychord':
+    if how == 'polychord':
         cfg['sampler'] = {'polychord': {'nlive': 100}}
     else:
         args = ['--sampler', how]
@@ -257,6 +257,144 @@ def test_port_logs_under_its_own_namespace(caplog):
 def test_default_device_is_the_card(sampling_cfg, tmp_path):
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
-    for cmd in ('eval', 'run', 'bench'):
+    for cmd in ('eval', 'run', 'bench', 'fit', 'scan', 'forecast'):
         with pytest.raises(RuntimeError, match='--device cpu'):
             tmain([cmd, _write(tmp_path, sampling_cfg)])
+
+
+# ---------------------------------------------------------------------------
+# the optimizer commands
+# ---------------------------------------------------------------------------
+
+@pytest.fixture()
+def narrow(monkeypatch):
+    """Both CLIs build single-dataset tables at a narrow width (n_mu 20,
+    n_v 10), the same in both packages, so that whole fits run in
+    seconds."""
+    import victor_tpu.__main__ as jcli
+    import victor_tpu_torch.__main__ as tcli
+    from victor_tpu.io import build_tables as jbuild
+    from victor_tpu_torch.io import build_tables as tbuild
+    monkeypatch.setattr(jcli, '_build_bundle', lambda cfg: jbuild(
+        cfg['model'], cfg.get('data'), n_mu=20, n_v=10))
+    monkeypatch.setattr(tcli, '_build_bundle', lambda cfg, device: tbuild(
+        cfg['model'], cfg.get('data'), n_mu=20, n_v=10, device=device))
+
+
+FIT_ARGS = ['--starts', '4', '--adam-steps', '120']
+
+
+def _check_fit_json(got, want):
+    """A fit's JSON against victor_tpu's at its printed rounding; the
+    elapsed time and the gradient norm (both stationary) aside."""
+    assert set(got) == set(want)
+    for k in ('chi2', 'p_value', 'log_likelihood', 'log_posterior'):
+        assert abs(got[k] - want[k]) <= 1.5e-4, k
+    assert got['ndof'] == want['ndof'] == 56
+    assert got['n_converged'] == want['n_converged'] == 4
+    for k in ('best_fit', 'std_laplace'):
+        assert list(got[k]) == list(want[k])
+        np.testing.assert_allclose(list(got[k].values()),
+                                   list(want[k].values()), rtol=1e-6,
+                                   atol=2e-6, err_msg=k)
+    assert got['grad_norm'] < 1e-6 and want['grad_norm'] < 1e-6
+    assert abs(got['log_evidence_laplace'] -
+               want['log_evidence_laplace']) < 3e-3
+
+
+def test_fit_matches_victor_tpu(sampling_cfg, narrow, tmp_path, capsys):
+    """`fit --bootstrap 4 --covmat-out` (4 starts, 120 Adam steps): every
+    key of victor_tpu's JSON with its value at the printed rounding (the
+    optimum does not depend on the starts), the bootstrap of the same mocks,
+    and the covmat files."""
+    path = _write(tmp_path, sampling_cfg)
+    args = FIT_ARGS + ['--bootstrap', '4']
+    jmain(['fit', path, '--covmat-out', str(tmp_path / 'j.covmat')] + args)
+    want = _json(capsys)
+    tmain(['fit', path, '--covmat-out', str(tmp_path / 't.covmat'),
+           '--device', 'cpu'] + args)
+    got = _json(capsys)
+    boot_g, boot_w = got.pop('bootstrap'), want.pop('bootstrap')
+    _check_fit_json({k: v for k, v in got.items() if k != 'covmat_file'},
+                    {k: v for k, v in want.items() if k != 'covmat_file'})
+    assert got['covmat_file'] == str(tmp_path / 't.covmat')
+    assert set(boot_g) == set(boot_w) and boot_g['n_boot'] == 4
+    for k in ('best_fit_debiased', 'bias', 'std_bootstrap'):
+        np.testing.assert_allclose(list(boot_g[k].values()),
+                                   list(boot_w[k].values()), rtol=1e-4,
+                                   atol=2e-6, err_msg=k)
+    from victor_tpu_torch.sampling.chains import read_covmat
+    names = list(got['best_fit'])
+    np.testing.assert_allclose(read_covmat(str(tmp_path / 't.covmat'), names),
+                               read_covmat(str(tmp_path / 'j.covmat'), names),
+                               rtol=1e-6)
+
+
+def test_run_minimize_nesting_runs_fit(sampling_cfg, narrow, tmp_path,
+                                       capsys):
+    """cobaya's `minimize:` nesting of `run` dispatches to `fit` with its
+    n_starts and adam_steps, and an output root writes <root>.covmat and
+    <root>.input.yaml; the JSON is victor_tpu's `fit` JSON. (victor_tpu's
+    own `run` with minimize: stops at its missing `bootstrap` argument,
+    victor_tpu/__main__.py:618, ROADMAP Queue 3.)"""
+    path = _write(tmp_path, sampling_cfg)
+    jmain(['fit', path] + FIT_ARGS)
+    want = _json(capsys)
+    cfg = copy.deepcopy(sampling_cfg)
+    root = str(tmp_path / 'out' / 'map')
+    cfg['sampler'] = {'minimize': {'n_starts': 4, 'adam_steps': 120},
+                      'output': root}
+    tmain(['run', _write(tmp_path, cfg, 'min.yaml'), '--device', 'cpu'])
+    got = _json(capsys)
+    assert got.pop('covmat_file') == root + '.covmat'
+    _check_fit_json(got, want)
+    assert os.path.isfile(root + '.covmat')
+    assert os.path.isfile(root + '.input.yaml')
+
+
+def test_scan_matches_victor_tpu(sampling_cfg, narrow, tmp_path, capsys):
+    """`scan --param fsigma8 --ngrid 5 --nsigma 3` (the default 32-start MAP
+    inside): victor_tpu's keys, its grid, profile chi2 and intervals at the
+    printed rounding. At this narrow width the +4 sigma point's nuisance
+    descent can end on either side of one of the likelihood's beta-grid
+    jumps (ROADMAP Queue 3): MAPs 1e-8 sigma apart moved it by 1.3e-3 in
+    chi2, while from one MAP the packages agree within 2e-10; hence 3
+    sigma. At full width all nine points of the default grid agree within
+    6e-9 (chip_smoke.py's SCAN_GOLDENS)."""
+    path = _write(tmp_path, sampling_cfg)
+    args = ['--param', 'fsigma8', '--ngrid', '5', '--nsigma', '3']
+    jmain(['scan', path] + args)
+    want = _json(capsys)
+    tmain(['scan', path, '--device', 'cpu'] + args)
+    got = _json(capsys)
+    assert set(got) == set(want) and got['scan'] == want['scan']
+    for k in ('grid', 'chi2_profile', 'delta_chi2', 'interval_68',
+              'interval_95'):
+        np.testing.assert_allclose(np.array(got[k], dtype=float),
+                                   np.array(want[k], dtype=float), rtol=0,
+                                   atol=1.5e-4, err_msg=k)
+    np.testing.assert_allclose(list(got['best_fit'].values()),
+                               list(want['best_fit'].values()), rtol=1e-6)
+
+
+def test_forecast_matches_victor_tpu(sampling_cfg, narrow, tmp_path, capsys):
+    """`forecast` at the ref point and with --param overrides (one outside
+    the params block, echoed back): victor_tpu's JSON at its rounding; a
+    derived name is refused before the tables are built."""
+    path = _write(tmp_path, sampling_cfg)
+    for args in ([], ['--param', 'fsigma8=0.5', '--param', 'bias=2.0']):
+        jmain(['forecast', path] + args)
+        want = _json(capsys)
+        tmain(['forecast', path, '--device', 'cpu'] + args)
+        got = _json(capsys)
+        assert set(got) == set(want)
+        for k in ('fiducial', 'overrides', 'correlation'):
+            assert got.get(k) == want.get(k), k
+        np.testing.assert_allclose(list(got['sigma_fisher'].values()),
+                                   list(want['sigma_fisher'].values()),
+                                   rtol=1e-5, atol=1e-6)
+    cfg = copy.deepcopy(sampling_cfg)
+    cfg['params']['aperp'] = {'value': 'lambda epsilon: epsilon ** 0.5'}
+    with pytest.raises(SystemExit, match='derived'):
+        tmain(['forecast', _write(tmp_path, cfg, 'derived.yaml'),
+               '--param', 'aperp=1.0', '--device', 'cpu'])

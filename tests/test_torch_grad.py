@@ -192,8 +192,8 @@ def test_plain_backward_partial_and_shapes():
 
 
 def test_function_refuses_knot_gradients_and_second_order():
-    """x takes no gradient; a backward that records a graph (a second
-    derivative, ROADMAP item 10b) raises."""
+    """x takes no gradient; second derivatives exist (the backward records
+    a graph through its own Function), and a third derivative raises."""
     rng = np.random.default_rng(6)
     x = _knots(rng, 8)
     c = _t(_coeffs(rng, x, (2,))).requires_grad_()
@@ -201,8 +201,11 @@ def test_function_refuses_knot_gradients_and_second_order():
     with pytest.raises(RuntimeError, match='knots'):
         ppoly.PpolyEval.apply(_t(x).requires_grad_(), c, q, True)
     out = ppoly.PpolyEval.apply(_t(x), c, q, True)
-    with pytest.raises(RuntimeError, match='10b'):
-        torch.autograd.grad(out.sum(), q, create_graph=True)
+    (dq,) = torch.autograd.grad(out.sum(), q, create_graph=True)
+    (d2,) = torch.autograd.grad(dq.sum(), q, retain_graph=True)
+    assert torch.isfinite(d2).all()
+    with pytest.raises(RuntimeError, match='third'):
+        torch.autograd.grad(dq.sum(), q, create_graph=True)
 
 
 def test_ops_dispatch_records_a_graph_only_under_gradients(monkeypatch):

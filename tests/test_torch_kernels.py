@@ -1,6 +1,6 @@
 """The CUDA kernels' wrappers, their build and their plain versions:
-ppoly_eval (one table or K channels over one query set) and the dispersion
-model's final stage.
+ppoly_eval (one table or K channels over one query set), its backward and
+its second-order terms, and the dispersion model's final stage.
 
 This module imports neither jax nor victor_tpu, so it also runs on a GPU
 machine without them:
@@ -687,6 +687,111 @@ def test_autograd_runs_the_backward_kernel_through_ops(cuda_device):
             np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                        rtol=0, atol=1e-12 * float(
                                            want.abs().max()), equal_nan=True)
+
+
+def _second_order_plain(x, c, q, g, u, V, clamp):
+    """The second-order terms' plain version, in f64: autograd with
+    create_graph through ppoly_eval_backward_plain (the gradient of
+    <u, dq> + <V, dcoeffs> to (coeffs, q, grad_out)), with the port's rule
+    at an infinite query without clamp (d/dq and d/dgrad_out NaN)."""
+    with torch.enable_grad():
+        leaves = [a.double().requires_grad_() for a in (c, q, g)]
+        dq, dc = ppoly.ppoly_eval_backward_plain(x.double(), *leaves, clamp)
+        s = (dq * u.double()).sum() + (dc * V.double()).sum()
+        out = torch.autograd.grad(s, leaves, allow_unused=True)
+    out = [torch.zeros_like(a) if d is None else d
+           for d, a in zip(out, leaves)]
+    if not clamp:
+        inf = torch.isinf(q)
+        out[1] = torch.where(inf, np.nan, out[1])
+        out[2] = torch.where(inf if g.ndim == 2 else inf[:, None], np.nan,
+                             out[2])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize('B,M,n,K,shared,offset', [
+    (16, 3000, 30, 4, False, 1), (16, 3001, 31, 1, False, 0),
+    (16, 3, 31, 1, False, 0), (8, 49, 31, 3, False, 0),
+    (16, 65, 31, 2, True, 0), (16, 3000, 2, 1, False, 0),
+    (16, 3000, 1024, 1, False, 0),
+    (1, 600_000, 25, 1, True, 0),       # a Hessian's sigma_v lookup
+    (4, 150_000, 31, 1, False, 0),      # its v_r and xi_0 lookups
+    (4, 150_000, 30, 2, False, 0)])
+@pytest.mark.parametrize('clamp', [True, False])
+def test_second_order_matches_plain_on_card(cuda_device, dtype, tol, B, M, n,
+                                            K, shared, offset, clamp):
+    """ppoly_eval_second_order on the card (five launches of the forward
+    and backward kernels on derived tables) against autograd through the
+    plain backward in f64: NaN and inf positions identical, d/dq and
+    d/dgrad_out within tol x their largest entry, d/dcoeffs within tol x
+    the summed magnitudes of its terms; two calls give the same bits."""
+    rng = np.random.default_rng(5 * B + M + n + K + offset)
+    x_np, c_np, base_np = _edge_inputs(rng, B, M, n, K, shared, offset)
+    g_np = rng.standard_normal((B, K, M) if K > 1 else (B, M))
+    x, c, base, g, u, V = (
+        torch.as_tensor(a, device=cuda_device).to(dtype)
+        for a in (x_np, c_np, base_np, g_np, rng.standard_normal((B, M)),
+                  rng.standard_normal(c_np.shape)))
+    q = base[offset:].view(B, M)
+    before = ppoly.LAUNCHES_2ND
+    got = ppoly.ppoly_eval_second_order(x, c, q, g, u, V, clamp)
+    again = ppoly.ppoly_eval_second_order(x, c, q, g, u, V, clamp)
+    assert ppoly.LAUNCHES_2ND == before + 10
+    want = _second_order_plain(x, c, q, g, u, V, clamp)
+    torch.cuda.synchronize()
+    cq = ppoly.clip_factor(x.double(), q.double()) if clamp else 1.0
+    w = (u.double() * cq).abs()
+    A = _abs_terms(x, c, q, (w[:, None] if K > 1 else w) * g.double().abs(),
+                   clamp)
+    scale_c = torch.stack([torch.zeros_like(A[..., 0]), A[..., 0],
+                           2.0 * A[..., 1], 3.0 * A[..., 2]], -1)
+    for k, p, scale in zip(got, want, (scale_c, None, None)):
+        k = k.double()
+        assert torch.equal(torch.isnan(k), torch.isnan(p))
+        assert torch.equal(torch.isinf(k), torch.isinf(p))
+        fin = torch.isfinite(p)
+        bound = tol * (scale[fin] if scale is not None else
+                       float(p[fin].abs().max()))
+        assert bool(((k - p)[fin].abs() <= bound).all())
+    for a, b in zip(got, again):
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.cuda
+def test_second_derivatives_through_ops_launch_the_kernels(cuda_device):
+    """A Hessian-vector product of a spline lookup through ops.splines on
+    CUDA tensors (create_graph=True, then a second backward) launches the
+    second-order kernels (three terms: the cotangent of dq reaches the
+    queries and the coefficients, that of dcoeffs the queries) and agrees
+    with the same product on the CPU; a third order raises."""
+    rng = np.random.default_rng(23)
+    x = _knots(rng, 25)
+    c = _coeffs(x, rng.standard_normal((4, 25)))
+    q = _queries(rng, x, (4, 300))
+    w, u, V = (rng.standard_normal(a) for a in (q.shape, q.shape, c.shape))
+    results = {}
+    for dev in (cuda_device, torch.device('cpu')):
+        qq = _t(q).to(dev).requires_grad_()
+        cc = _t(c).to(dev).requires_grad_()
+        out = tsp.ppoly_eval(_t(x).to(dev), cc, qq)
+        dq, dc = torch.autograd.grad((out * _t(w).to(dev)).sum(), (qq, cc),
+                                     create_graph=True)
+        s = (dq * _t(u).to(dev)).sum() + (dc * _t(V).to(dev)).sum()
+        before = ppoly.LAUNCHES_2ND
+        results[dev.type] = torch.autograd.grad(s, (qq, cc),
+                                                retain_graph=True)
+        if dev.type == 'cuda':
+            assert ppoly.LAUNCHES_2ND == before + 3
+            with pytest.raises(RuntimeError, match='third'):
+                torch.autograd.grad(s, qq, create_graph=True)
+    for got, want in zip(results['cuda'], results['cpu']):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                                   atol=1e-12 * float(want[
+                                       torch.isfinite(want)].abs().max()),
+                                   equal_nan=True)
 
 
 @pytest.mark.cuda

@@ -1,20 +1,24 @@
 """Command-line entry: the `cobaya-run` equivalent on one CUDA card.
 
-    python -m victor_tpu_torch run <config.yaml>     # sample the posterior
-    python -m victor_tpu_torch eval <config.yaml>    # one likelihood evaluation
-    python -m victor_tpu_torch bench <config.yaml>   # batched throughput
+    python -m victor_tpu_torch run <config.yaml>      # sample the posterior
+    python -m victor_tpu_torch eval <config.yaml>     # one likelihood evaluation
+    python -m victor_tpu_torch fit <config.yaml>      # MAP + Laplace errors
+    python -m victor_tpu_torch scan <config.yaml> --param fsigma8
+    python -m victor_tpu_torch forecast <config.yaml> # Fisher forecast
+    python -m victor_tpu_torch bench <config.yaml>    # batched throughput
 
-The port of `victor_tpu/__main__.py`'s `run`, `eval` and `bench`, with its
-defaults and JSON output and the arguments of the samplers ported so far,
-plus `--device` (default `cuda`; `--device cpu` runs on the host). The
-YAML layout extends the reference's cobaya config: `model:`/`data:` blocks (reference schema), a `params:` block
+The port of `victor_tpu/__main__.py`'s `run`, `eval`, `fit`, `scan`,
+`forecast` and `bench`, with its defaults and JSON output and the arguments
+of the samplers ported so far, plus `--device` (default `cuda`; `--device
+cpu` runs on the host). The YAML layout extends the reference's cobaya
+config: `model:`/`data:` blocks (reference schema), a `params:` block
 (cobaya vocabulary, config/boss_cobaya_config.yaml:50-97), and an optional
 `sampler:` block (kind — default mh, the cobaya algorithm class — hmc,
 nuts or ensemble; n_chains, n_samples, n_warmup, n_leapfrog, max_depth,
 rhat_stop, seed, output, checkpoint, covmat; cobaya's own `mcmc:` nesting
-maps to mh). A top-level `quantiles:` list is a multi-quantile joint fit.
-The samplers smc and ns, and cobaya's `minimize:` and `polychord:`
-nestings, are not ported yet and exit with a message.
+maps to mh and its `minimize:` nesting to `fit`). A top-level `quantiles:`
+list is a multi-quantile joint fit. The samplers smc and ns, and cobaya's
+`polychord:` nesting, are not ported yet and exit with a message.
 """
 
 from __future__ import annotations
@@ -201,7 +205,21 @@ def cmd_run(args):
         with open(out_root + '.input.yaml', 'w') as f:
             yaml.safe_dump(raw_cfg, f, sort_keys=False)
     if 'minimize' in sampler and args.sampler is None:
-        sys.exit(f"sampler 'minimize' (cobaya's MAP finder) {_NOT_PORTED}")
+        # cobaya's `minimize` sampler is its MAP finder: a run config asking
+        # for it dispatches to `fit` (multi-start Adam + Newton with Laplace
+        # errors — sampling/optimize.find_map). An explicit --sampler flag
+        # wins (same precedence as over kind:). An output root plumbs
+        # through as the default covmat destination
+        mn = sampler.pop('minimize')
+        mn = mn if isinstance(mn, dict) else {}
+        covmat_out = mn.get('covmat_out') or (
+            out_root + '.covmat' if out_root else None)
+        return cmd_fit(argparse.Namespace(
+            config=args.config, set=args.set,
+            starts=int(mn.get('n_starts', 32)),
+            adam_steps=int(mn.get('adam_steps', 250)),
+            seed=seed, covmat_out=covmat_out, bootstrap=0,
+            device=args.device))
     if isinstance(sampler.get('polychord'), dict):
         sampler.pop('polychord')
         sampler.setdefault('kind', 'ns')
@@ -414,6 +432,175 @@ def cmd_eval(args):
         'params': {k: float(v[0]) for k, v in params.items()}}))
 
 
+def _ndata(bundle):
+    """Data-vector length from the tables' shapes."""
+    return bundle.ndata if hasattr(bundle, 'ndata') else \
+        int(bundle.tables.icov.shape[-1]) if bundle.spec.fixed_covmat else \
+        int(bundle.tables.cov.shape[-1])
+
+
+def _map_report_stats(bundle, mres):
+    """(ndata, ndof, p_value, derived) for a MAP result. The PTE respects
+    the likelihood form: Hotelling-F for the estimated-covariance forms
+    (sampling/gof.py)."""
+    import torch
+
+    from .sampling.gof import chi2_tail_probability
+    ndata = _ndata(bundle)
+    ndof = ndata - mres.space.ndim
+    p_val = chi2_tail_probability(mres.chi2, ndof, bundle.fit_opts.form,
+                                  bundle.fit_opts.nmocks)
+    derived = {k: float(v) for k, v in mres.space.derived_values(
+        torch.as_tensor(mres.theta, dtype=torch.float64)).items()}
+    return ndata, ndof, p_val, derived
+
+
+def cmd_fit(args):
+    from .sampling.optimize import find_map
+
+    cfg = _apply_set(_load(args.config), args.set)
+    if not _has_data(cfg):
+        sys.exit('fit requires a data: block (data vector + covariance)')
+    bundle = _build_bundle(cfg, args.device)
+    params_block = cfg.get('params')
+    if not params_block:
+        sys.exit('config must contain a params: block to fit')
+    t0 = time.time()
+    result = find_map(bundle, params_block, n_starts=args.starts,
+                      adam_steps=args.adam_steps, seed=args.seed,
+                      device=args.device)
+    _, ndof, p_val, derived = _map_report_stats(bundle, result)
+    derived = {k: round(v, 6) for k, v in derived.items()}
+    out = {
+        'chi2': round(result.chi2, 4),
+        # tail probability under the configured likelihood form (exact chi2
+        # for gaussian; Hotelling-F finite-mock null for sellentin/hartlap/
+        # percival — sampling/gof.py)
+        'ndof': ndof,
+        'p_value': round(p_val, 4),
+        'log_likelihood': round(result.lnlike, 4),
+        'log_posterior': round(result.lnpost, 4),
+        'grad_norm': result.grad_norm,
+        'best_fit': {k: round(v, 6) for k, v in result.params.items()},
+        'std_laplace': {k: round(v, 6) for k, v in result.std.items()},
+        'n_converged': result.n_converged,
+        # Laplace (saddle-point) evidence from quantities the fit already
+        # has (null when the Laplace covariance is not positive definite)
+        'log_evidence_laplace': round(result.log_evidence_laplace, 3),
+        'elapsed_s': round(time.time() - t0, 2)}
+    if derived:
+        out['derived'] = derived
+    if args.bootstrap:
+        # parametric-bootstrap debiasing + calibrated frequentist sigmas
+        # (sampling/optimize.parametric_bootstrap)
+        from .sampling.optimize import parametric_bootstrap
+        bres = parametric_bootstrap(bundle, params_block, result,
+                                    n_boot=args.bootstrap, seed=args.seed,
+                                    device=args.device)
+        out['bootstrap'] = {
+            'n_boot': int(len(bres.theta_boot)),
+            'best_fit_debiased': {k: round(v, 6)
+                                  for k, v in bres.debiased.items()},
+            'bias': {n: round(float(bres.bias[i]), 6)
+                     for i, n in enumerate(bres.names)},
+            'std_bootstrap': {k: round(v, 6) for k, v in bres.std.items()},
+        }
+        out['elapsed_s'] = round(time.time() - t0, 2)
+    if args.covmat_out:
+        # Laplace covariance in cobaya .covmat format: the fit->sample
+        # workflow (seed `run --covmat <this file>`)
+        from .sampling.chains import write_covmat
+        write_covmat(args.covmat_out, result.space.names, result.cov)
+        out['covmat_file'] = args.covmat_out
+    print(json.dumps(_json_sanitize(out), indent=2))
+
+
+def cmd_scan(args):
+    import numpy as np
+
+    from .sampling.optimize import profile_scan
+
+    cfg = _apply_set(_load(args.config), args.set)
+    if not _has_data(cfg):
+        sys.exit('scan requires a data: block (data vector + covariance)')
+    if not args.param:
+        sys.exit('scan needs at least one --param to profile over')
+    bundle = _build_bundle(cfg, args.device)
+    params_block = cfg.get('params')
+    if not params_block:
+        sys.exit('config must contain a params: block')
+    t0 = time.time()
+    res = profile_scan(bundle, params_block, args.param, n_grid=args.ngrid,
+                       n_sigma=args.nsigma, seed=args.seed,
+                       device=args.device)
+    out = {
+        'scan': list(res.scan_names),
+        'grid': np.round(res.grid, 6).tolist(),
+        'chi2_profile': np.round(res.chi2, 4).tolist(),
+        'delta_chi2': np.round(res.delta_chi2(), 4).tolist(),
+        'best_fit': {k: round(v, 6) for k, v in res.map_result.params.items()},
+        'elapsed_s': round(time.time() - t0, 2),
+    }
+    if len(res.scan_names) == 1:
+        # one-sided limits leave a crossing at nan: map non-finite to null
+        def _r(x):
+            return round(x, 6) if np.isfinite(x) else None
+        lo, hi = res.interval(1.0)
+        out['interval_68'] = [_r(lo), _r(hi)]
+        lo2, hi2 = res.interval(4.0)
+        out['interval_95'] = [_r(lo2), _r(hi2)]
+    print(json.dumps(out, indent=2))
+
+
+def cmd_forecast(args):
+    """Gaussian Fisher-matrix forecast of the expected parameter
+    constraints at a fiducial point: sigmas and correlations from the exact
+    residual Jacobian (sampling/optimize.fisher_forecast), no sampling. The
+    fiducial defaults to the params block's ref locations (override with
+    --param name=value)."""
+    import numpy as np
+
+    from .sampling.optimize import fisher_forecast
+    from .sampling.priors import ParamSpace
+
+    cfg = _apply_set(_load(args.config), args.set)
+    if not _has_data(cfg):
+        sys.exit('forecast requires a data: block (data vector + covariance)')
+    params_block = cfg.get('params')
+    if not params_block:
+        sys.exit('config must contain a params: block')
+    space = ParamSpace(params_block)
+    if not space.ndim:
+        sys.exit('forecast needs sampled parameters in the params: block')
+    # parse/validate overrides BEFORE the expensive table build so a typo'd
+    # or derived-name --param fails fast
+    overrides = _parse_param_overrides(args.param, space=space)
+    bundle = _build_bundle(cfg, args.device)
+    fiducial = _reference_point(space)
+    fiducial.update(overrides)
+    t0 = time.time()
+    res = fisher_forecast(bundle, fiducial, space.names,
+                          derived=space.derived)
+    names = list(res.names)
+    corr = np.round(res.correlation, 4)
+    print(json.dumps(_json_sanitize({
+        'fiducial': {k: round(float(fiducial[k]), 6) for k in names},
+        # every --param override echoed back, including names outside the
+        # params block (where a typo'd name would otherwise vanish)
+        **({'overrides': {k: round(v, 6) for k, v in overrides.items()}}
+           if overrides else {}),
+        'sigma_fisher': {k: round(v, 6) for k, v in res.std.items()},
+        'correlation': {names[i]: {names[j]: float(corr[i, j])
+                                   for j in range(len(names)) if j != i}
+                        for i in range(len(names))},
+        'elapsed_s': round(time.time() - t0, 2),
+        'note': 'expected constraints from the local response at the '
+                'fiducial (residual Jacobian + fiducial-beta precision); '
+                'agrees with the Laplace errors in expectation for a '
+                'Gaussian likelihood with parameter-independent covariance',
+    }), indent=2))
+
+
 def cmd_bench(args):
     import torch
 
@@ -518,6 +705,49 @@ def main(argv=None):
                     help='override, e.g. --param fsigma8=0.47')
     pe.add_argument('--device', default='cuda', help=device_help)
     pe.set_defaults(fn=cmd_eval)
+
+    pf = sub.add_parser('fit', help='best fit (MAP) + Laplace errors')
+    pf.add_argument('config')
+    pf.add_argument('--set', action='append', metavar='dotted.key=value',
+                    help=set_help)
+    pf.add_argument('--starts', type=int, default=32,
+                    help='multi-start count (one batched descent)')
+    pf.add_argument('--adam-steps', type=int, default=250)
+    pf.add_argument('--seed', type=int, default=0)
+    pf.add_argument('--covmat-out', default=None, metavar='PATH',
+                    help='write the Laplace covariance as a cobaya-format '
+                         '.covmat (seeds `run --covmat` or cobaya itself)')
+    pf.add_argument('--bootstrap', type=int, default=0, metavar='N',
+                    help='parametric-bootstrap calibration: refit N '
+                         'synthetic datasets drawn from the fitted model, '
+                         'report debiased best-fit values and calibrated '
+                         'frequentist sigmas beside the Laplace ones')
+    pf.add_argument('--device', default='cuda', help=device_help)
+    pf.set_defaults(fn=cmd_fit)
+
+    ps = sub.add_parser('scan', help='profile-likelihood scan (1D or 2D)')
+    ps.add_argument('config')
+    ps.add_argument('--set', action='append', metavar='dotted.key=value',
+                    help=set_help)
+    ps.add_argument('--param', action='append',
+                    help='parameter to scan (repeat for a 2D scan)')
+    ps.add_argument('--ngrid', type=int, default=21)
+    ps.add_argument('--nsigma', type=float, default=4.0,
+                    help='grid half-width in Laplace sigmas around the MAP')
+    ps.add_argument('--seed', type=int, default=0)
+    ps.add_argument('--device', default='cuda', help=device_help)
+    ps.set_defaults(fn=cmd_scan)
+
+    pfc = sub.add_parser('forecast', help='Fisher forecast of expected '
+                         'constraints at a fiducial point (no sampling)')
+    pfc.add_argument('config')
+    pfc.add_argument('--set', action='append', metavar='dotted.key=value',
+                     help=set_help)
+    pfc.add_argument('--param', action='append',
+                     help='fiducial override, e.g. --param fsigma8=0.47 '
+                          '(default: the params block ref locations)')
+    pfc.add_argument('--device', default='cuda', help=device_help)
+    pfc.set_defaults(fn=cmd_forecast)
 
     pb = sub.add_parser('bench', help='batched likelihood throughput')
     pb.add_argument('config')

@@ -18,14 +18,19 @@ The gradient (which the TPU kernel lacked: JAX differentiated its plain
 version) is `PpolyEval`, a `torch.autograd.Function` whose backward is the
 hand-written kernel of the same source (`ppoly_eval_backward_cuda`) on CUDA
 tensors and `ppoly_eval_backward_plain` on CPU tensors: dq, and dcoeffs
-summed over each table's queries in a fixed order. First order only; x
-takes no gradient.
+summed over each table's queries in a fixed order. x takes no gradient.
+
+A backward that records a graph (create_graph=True, as a Hessian needs)
+goes through `_PpolyEvalBackward`, whose own backward composes the second
+derivatives from launches of the same two kernels on tables derived
+elementwise (its docstring has the algebra). A third order raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -38,6 +43,8 @@ LAUNCHES = 0
 LAUNCHES_MULTI = 0
 #: launches of the backward kernel (one per backward call)
 LAUNCHES_BWD = 0
+#: of LAUNCHES and LAUNCHES_BWD, those made for second derivatives
+LAUNCHES_2ND = 0
 
 MAX_KNOTS = 1024          # with K = 1: 40,936 bytes of table in f64, < 48 KB
 MAX_CHANNELS = 4          # instantiated in csrc/ppoly_eval.cu
@@ -364,23 +371,32 @@ def ppoly_eval_backward_cuda(x, coeffs, q, grad_out, clamp: bool = True,
     return dq, dc
 
 
+def clip_factor(x, q):
+    """d clip(q, x[0], x[-1]) / dq with JAX's tie rule: 1 inside, 0.5 at a
+    bound, 0 outside (and at NaN)."""
+    inside = (q > x[0]) & (q < x[-1])
+    tie = (q == x[0]) | (q == x[-1])
+    return torch.where(inside, 1.0, torch.where(tie, 0.5, 0.0)).to(q.dtype)
+
+
 def ppoly_eval_backward_plain(x, coeffs, q, grad_out, clamp: bool = True,
                               want_dq: bool = True,
                               want_dcoeffs: bool = True):
     """The backward kernel's function in plain PyTorch, in its op order:
-    the clip's selects, searchsorted(right) (which puts a NaN query in the
-    last interval, as JAX's searchsorted does), gathers, the
-    derivative's Horner form ((3 c3) t + 2 c2) t + c1 summed over channels
-    in order and times the clip factor (1 inside, 0.5 at a bound, 0
-    outside), and the terms g (1, t, t^2, t^3) summed per table by
+    the clip's selects (`ops.special.clip`, so that autograd through this
+    function differentiates the clamp with JAX's tie rule),
+    searchsorted(right) (which puts a NaN query in the last interval, as
+    JAX's searchsorted does), gathers, the derivative's Horner form
+    ((3 c3) t + 2 c2) t + c1 summed over channels in order and times
+    `clip_factor`, and the terms g (1, t, t^2, t^3) summed per table by
     `index_add_`. Returns (dq or None, dcoeffs or None)."""
-    from ..ops.special import _select
+    from ..ops.special import clip
     n = x.shape[0]
     B, M = q.shape
     c = coeffs if coeffs.ndim == 4 else coeffs[:, None]       # (Bc, K, ...)
     g = grad_out if coeffs.ndim == 4 else grad_out[:, None]   # (B, K, M)
     Bc, K = c.shape[:2]
-    qq = _select(q, x[0], x[-1]) if clamp else q
+    qq = clip(q, x[0], x[-1]) if clamp else q
     idx = torch.clamp(torch.searchsorted(x, qq, right=True) - 1, 0, n - 2)
     t = qq - x[idx]
     dq = dc = None
@@ -392,10 +408,7 @@ def ppoly_eval_backward_plain(x, coeffs, q, grad_out, clamp: bool = True,
             dk = g[:, k] * ((3.0 * c3 * t + 2.0 * c2) * t + c1)
             dq = dk if dq is None else dq + dk
         if clamp:
-            inside = (q > x[0]) & (q < x[-1])
-            tie = (q == x[0]) | (q == x[-1])
-            dq = dq * torch.where(inside, 1.0, torch.where(tie, 0.5, 0.0)).to(
-                q.dtype)
+            dq = dq * clip_factor(x, q)
     if want_dcoeffs:
         p1 = g * t[:, None]
         p2 = p1 * t[:, None]
@@ -410,13 +423,128 @@ def ppoly_eval_backward_plain(x, coeffs, q, grad_out, clamp: bool = True,
     return dq, dc
 
 
+def _derivative_table(coeffs):
+    """The table of p' on the same knots: (c1, 2 c2, 3 c3, 0) per interval,
+    elementwise."""
+    c = coeffs.unbind(-1)
+    return torch.stack([c[1], 2.0 * c[2], 3.0 * c[3], torch.zeros_like(c[0])],
+                       -1)
+
+
+def ppoly_eval_second_order(x, coeffs, q, grad_out, u, V, clamp: bool = True,
+                            want_coeffs: bool = True, want_q: bool = True,
+                            want_grad_out: bool = True):
+    """The second derivatives of `ppoly_eval`: the gradient of
+    <u, dq> + <V, dcoeffs> to (coeffs, q, grad_out), where (dq, dcoeffs) is
+    the backward of `ppoly_eval` with grad_out g, and u (q's shape) and V
+    (the coefficients' shape) are their cotangents, either None for 0.
+    Returns (d_coeffs, d_q, d_grad_out), None where not asked for or zero.
+
+    With c(q) the clip factor (`clip_factor`; 1 without clamp), D the
+    derivative table (c1, 2 c2, 3 c3, 0) and p_V the polynomial with
+    coefficients V, every term is one launch of the forward or the backward
+    kernel (of their plain versions on CPU tensors) on a table derived
+    elementwise:
+
+        d/dg      = u c(q) p'(qq) + p_V(qq)       forward on D, forward on V
+        d/dq      = c(q) [c(q) sum_k u g_k p_k''(qq)] + c(q) sum_k g_k p_Vk'(qq)
+                                                   backward dq on D with grad
+                                                   u g, backward dq on V
+                                                   with grad g
+        d/dcoeffs = (0, S_0, 2 S_1, 3 S_2)        S: backward dcoeffs with
+                                                   grad u c(q) g
+
+    The clip factor enters d/dq squared: at a bound the second derivative
+    takes 0.25 of p'', as JAX's does. A NaN query takes the backward's
+    interval n-2. At an infinite query without clamp, where the forward is
+    NaN, d/dq and d/dgrad_out are NaN (JAX's 'gather' strategy, whose
+    forward is the end polynomial there, gives infinities). The kernel
+    launches the wrappers count (LAUNCHES, LAUNCHES_BWD) during the call
+    also count in LAUNCHES_2ND."""
+    global LAUNCHES_2ND
+    before = LAUNCHES + LAUNCHES_BWD
+    g = grad_out
+    cuda = q.is_cuda
+    fwd = ppoly_eval_cuda if cuda else ppoly_eval_plain
+    bwd = ppoly_eval_backward_cuda if cuda else ppoly_eval_backward_plain
+    cq = clip_factor(x, q) if clamp else torch.ones_like(q)
+    if coeffs.ndim == 4:                      # (B, M) -> (B, 1, M)
+        def per_channel(a):
+            return a[:, None]
+    else:
+        def per_channel(a):
+            return a
+    d_c = d_q = d_g = None
+    if u is not None:
+        D = _derivative_table(coeffs) if want_grad_out or want_q else None
+        if want_grad_out:
+            d_g = per_channel(u * cq) * fwd(x, D, q, clamp)
+        if want_q:
+            ug = (per_channel(u) * g).contiguous()
+            d_q = cq * bwd(x, D, q, ug, clamp, True, False)[0]
+        if want_coeffs:
+            w = (per_channel(u * cq) * g).contiguous()
+            S = bwd(x, coeffs, q, w, clamp, False, True)[1]
+            d_c = torch.stack([torch.zeros_like(S[..., 0]), S[..., 0],
+                               2.0 * S[..., 1], 3.0 * S[..., 2]], -1)
+    if V is not None:
+        V = V.contiguous()
+        if want_grad_out:
+            pv = fwd(x, V, q, clamp)
+            d_g = pv if d_g is None else d_g + pv
+        if want_q:
+            dv = bwd(x, V, q, g, clamp, True, False)[0]
+            d_q = dv if d_q is None else d_q + dv
+    if not clamp:
+        # an infinite query without clamp: the forward is NaN there (its
+        # `+ (qq - qq)` term), and so are these terms, whatever order their
+        # infinities would meet in (d/dcoeffs sums them as the backward does)
+        inf = torch.isinf(q)
+        if d_q is not None:
+            d_q = torch.where(inf, math.nan, d_q)
+        if d_g is not None:
+            d_g = torch.where(per_channel(inf), math.nan, d_g)
+    LAUNCHES_2ND += LAUNCHES + LAUNCHES_BWD - before
+    return d_c, d_q, d_g
+
+
+class _PpolyEvalBackward(torch.autograd.Function):
+    """`PpolyEval`'s backward as a Function of its own, so that a backward
+    that records a graph (create_graph=True, a Hessian) can be
+    differentiated once more. Forward: `ppoly_eval_backward_cuda` or
+    `ppoly_eval_backward_plain`, by device, returning (dq, dcoeffs) with
+    None for what is not asked for. Backward: `ppoly_eval_second_order`.
+    A backward of this Function that records a graph (a third derivative)
+    raises."""
+
+    @staticmethod
+    def forward(ctx, x, coeffs, q, grad_out, clamp, want_dq, want_dcoeffs):
+        ctx.set_materialize_grads(False)
+        ctx.clamp = clamp
+        ctx.save_for_backward(x, coeffs, q, grad_out)
+        fn = ppoly_eval_backward_cuda if q.is_cuda else \
+            ppoly_eval_backward_plain
+        return fn(x, coeffs, q, grad_out, clamp, want_dq, want_dcoeffs)
+
+    @staticmethod
+    def backward(ctx, u, V):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                'ppoly_eval has derivatives up to the second order: a '
+                'backward of its second derivatives that records a graph '
+                '(a third derivative) is not supported')
+        x, coeffs, q, g = ctx.saved_tensors
+        d_c, d_q, d_g = ppoly_eval_second_order(
+            x, coeffs, q, g, u, V, ctx.clamp, *ctx.needs_input_grad[1:4])
+        return None, d_c, d_q, d_g, None, None, None
+
+
 class PpolyEval(torch.autograd.Function):
     """`ppoly_eval` with its gradient to q and to the coefficients: forward
     `ppoly_eval_cuda` or `ppoly_eval_plain`, backward
-    `ppoly_eval_backward_cuda` or `ppoly_eval_backward_plain`, by device.
-    First order only: a backward that records a graph (a second derivative)
-    raises. `ops.splines` calls it only while a gradient is being
-    recorded."""
+    `ppoly_eval_backward_cuda` or `ppoly_eval_backward_plain`, by device,
+    through `_PpolyEvalBackward`, which has second derivatives.
+    `ops.splines` calls it only while a gradient is being recorded."""
 
     @staticmethod
     def forward(ctx, x, coeffs, q, clamp):
@@ -432,15 +560,9 @@ class PpolyEval(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        if torch.is_grad_enabled():
-            raise RuntimeError(
-                'ppoly_eval has a first-order backward only: second '
-                'derivatives (create_graph=True, Hessians, forward mode) '
-                'come with ROADMAP Queue 1 item 10b')
         x, coeffs, q = ctx.saved_tensors
-        fn = ppoly_eval_backward_cuda if q.is_cuda else \
-            ppoly_eval_backward_plain
-        dq, dc = fn(x, coeffs, q, grad_out.contiguous(), ctx.clamp,
-                    want_dq=ctx.needs_input_grad[2],
-                    want_dcoeffs=ctx.needs_input_grad[1])
+        # records a graph only when the backward does (create_graph=True)
+        dq, dc = _PpolyEvalBackward.apply(
+            x, coeffs, q, grad_out.contiguous(), ctx.clamp,
+            ctx.needs_input_grad[2], ctx.needs_input_grad[1])
         return None, dc, dq, None
