@@ -120,13 +120,52 @@ result line is printed):
       starts): the exact 9 x 9 Hessian at the optimum finite (so no
       finite-difference fallback was taken), and
       the Hessian at the ESM ref point against ESM_HESS_GOLDENS within 1e-7
-      of max|H|.
+      of max|H|;
+14. the evidence path at full BOSS width, f64, on configs/boss_config.yaml
+   with the quadrature's params block QUAD_BLOCK ('auto' modes resolved
+   gradient-free: streaming_eval fast, factored covariance); each logZ
+   gate is 3 of its reported se around the grid-quadrature evidence
+   QUAD_LOGZ, each moment gate 0.2 sigma and 15% of QUAD_MEAN/QUAD_STD:
+   a. `run --sampler smc` with its defaults (2048 particles, 5 moves, seed
+      0) through the CLI: logZ, moments, a finite posterior-predictive p,
+      the ppoly_eval launches of every stage (counted, and counted by
+      lookup), and (once the card is otherwise idle, after phase 13) the
+      kernel held against its plain version on the inputs of each lookup of
+      a chunk of 64 of its particles, timed;
+   b. the library run_smc stopped after stage 2 (max_stages, checkpoint) and
+      resumed equals a's run bit for bit: logZ, ladder, particles, aux;
+   c. `run --sampler ns` with its defaults (1024 live points, 256 per
+      iteration, 24 steps, dlogz 0.01): logZ, moments, the launches of
+      every iteration;
+   d. `post` of a's chains with data.likelihood.form=gaussian: finite
+      Delta lnZ and efficiency > 0.5; a library reweight of POST_N points
+      against victor_tpu's per-point deltas (POST_GOLDENS) within 1e-8;
+   e. `tension` of the config against itself: concordance, ln R > 0, the
+      parameter shift < 1 sigma, each dataset's logZ;
+   f. `compare` of streaming with dispersion (dispersion_final 'fused'):
+      |Delta lnZ| within 3 combined se, and the dispersion_final kernel
+      launched and held against its plain version on the inputs of one of
+      the run's launches, timed;
+   g. `analyze configs/boss_sampling_config.yaml --no-plots`: the MAP's chi2
+      within 1e-6 of FIT_GOLDENS, logZ, every output file, the chains and
+      covmat read back;
+   h. (information) the wall time and evals/s of each run, and the
+      kernels' device time of one SMC stage and one NS iteration under
+      torch.profiler against wall time.
+   a-e and g run in a process of their own (`--evidence-child`) beside
+   phase 12d, whose host-bound HMC run leaves the card ~94% idle; the
+   kernel comparisons (a, f) and h time the card, so they run in the main
+   process after phase 13, with f.
+   Cut for time: e, f and g run 1024 particles x 4 moves (the commands'
+   default is 4096 x 8: a run of 7 stages then takes ~12 s instead of
+   ~80 s) and g's MAP 8 starts (16); a and c run the commands' defaults.
 
 The last two lines are a JSON summary of the kernels (device-only `ms`,
 `host_us`; the sampler row's `ms` is its L2-cold reading, beside `warm_ms`;
 a second-order row's `ms` is one composed call of several launches, its
 `calls` the composed calls at its lookup and its `launches` their kernel
-launches) and the result line {"ok": true, "device": {...}}. `--profile PATH` also
+launches; a particle-sampler row's `launches` are its lookup's in 14a's SMC
+run, `ns_launches` in 14c's NS run) and the result line {"ok": true, "device": {...}}. `--profile PATH` also
 writes a torch.profiler summary of one batch of each timed configuration,
 of 20 MH steps in each perf mode and of 2 HMC steps to PATH.
 """
@@ -257,6 +296,40 @@ QUAD_MEAN = {'fsigma8': 0.573, 'beta': 0.3667, 'sigma_v': 418.0,
              'epsilon': 1.0089}
 QUAD_STD = {'fsigma8': 0.054, 'beta': 0.011, 'sigma_v': 44.0,
             'epsilon': 0.011}
+# Phase 14: the evidence path. The yardstick is the grid-quadrature
+# evidence of tools/validate_posterior.py under QUAD_BLOCK's uniform priors
+# (BASELINE.md): a property of the likelihood, not a speed.
+QUAD_LOGZ = 278.967
+# Phase 14d: victor_tpu's reweight of POST_N points (uniform in QUAD_MEAN +-
+# 3 QUAD_STD cut to QUAD_BLOCK's box, np.random.default_rng(POST_SEED)) of
+# configs/boss_config.yaml from its sellentin form to the gaussian one, 'auto'
+# modes resolved gradient-free: lnL_new - lnL_old per point, on the CPU in
+# f64, recomputed and compared with these literals by
+# tests/test_torch_post.py::test_chip_smoke_post_goldens_match_victor_tpu
+POST_SEED = 8
+POST_N = 64
+POST_GOLDENS = [-1.2827547472733727, -1.1995190311847068, -1.1767734792036322,
+                -1.4112040984360874, -0.8557072758407571, -1.572246313379992,
+                -1.309498937378521, -0.863360675357228, -1.0689673807567033,
+                -1.4471736941343352, -1.197239888350623, -0.9002395512484895,
+                -0.8796718228761051, -1.1067569202106142, -1.4541486415241707,
+                -1.042746516015825, -1.0694957695304765, -1.16524186988795,
+                -1.1733063332690676, -1.344401847702045, -1.5193557600717895,
+                -1.8084146045205216, -1.6386932515015928, -0.902714616743026,
+                -1.233471439274524, -0.920215981314243, -1.4131292891319163,
+                -1.0550225101915203, -1.3214103161791968, -0.960644938045732,
+                -1.535834449491631, -2.014031592783681, -0.9702951389565442,
+                -1.610980819281565, -2.25031290358055, -0.9787714569271202,
+                -1.096660406011324, -2.0824650160337796, -1.2663624687073138,
+                -1.8730752600095002, -1.5494181180057467, -1.2716647173919,
+                -1.9496596953063658, -1.5765193701539033, -1.5386095682319478,
+                -1.0452072510876746, -1.3312651175098154, -0.9054653354243669,
+                -1.607345518694217, -2.2140349333786844, -2.2440359221120048,
+                -0.9962097838221666, -1.855648248666057, -1.4182236516572857,
+                -1.082757884434784, -1.1951697932025809, -1.4841489485910415,
+                -0.97673046649561, -2.4732938503735795, -1.3313207987801547,
+                -1.0016125948803278, -0.9075899348078451, -2.2324431298337686,
+                -0.9065367389837888]
 MH_N_SAMPLES = 8000           # the CLI's draw cap (the default)
 # The default MH run of phase 11b before the ppoly_eval redesign (the kernel
 # and wrapper of commit 8d0baf7 on an NVIDIA H100 80GB HBM3): draws and max
@@ -880,10 +953,10 @@ def dispersion_final_inputs(bundle):
     return x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel
 
 
-def compare_dispersion(inputs, dtype):
+def compare_dispersion(inputs, dtype, planted=True):
     """The dispersion_final kernel against its plain version at the path's
-    shape; returns `timed`'s result, the error the worst of the four
-    outputs."""
+    shape (`planted`: with the NaN entries of `dispersion_final_inputs`);
+    returns `timed`'s result, the error the worst of the four outputs."""
     import torch
     from victor_tpu_torch.kernels.dispersion import (dispersion_final_cuda,
                                                      dispersion_final_plain)
@@ -896,7 +969,8 @@ def compare_dispersion(inputs, dtype):
              f'coeffs={tuple(args[1].shape)} {str(dtype)[6:]}')
     worst = 0.0
     for name, k, p in zip(('r_par', 'rr', 'mu_r', 'jac'), out_k, out_p):
-        check(bool(torch.isnan(p).any()), f'{label} {name}: NaN planted')
+        if planted:
+            check(bool(torch.isnan(p).any()), f'{label} {name}: NaN planted')
         worst = max(worst, compare_outputs(f'{label} {name}', k, p, dtype))
 
     # per element: two interval searches with their clamps, three Horner
@@ -1272,6 +1346,12 @@ def mh_posterior(cfg, tmp):
     return launches[0], steps, chains[-1], n_draws, rm1, digest.hexdigest()
 
 
+def lookup_shape(x, coeffs, q, clamp):
+    """A ppoly_eval call's shapes, by which launches are counted per
+    lookup."""
+    return (tuple(coeffs.shape), tuple(q.shape), bool(clamp))
+
+
 def cold_ms(x, coeffs, q, clamp, copies=6):
     """Device-only ms of one ppoly_eval call with L2 cold: `copies` distinct
     (q, out) pairs in rotation, more than the card's 50 MB L2 in all, so
@@ -1291,13 +1371,14 @@ def cold_ms(x, coeffs, q, clamp, copies=6):
         ppoly_eval_cuda(x, coeffs, next(turn), clamp)))
 
 
-def sampler_kernel_case(bundle, theta):
-    """Every ppoly_eval call of one likelihood evaluation of the MH step
-    (default modes, 8 chains) against the plain version on the same inputs,
-    each timed back to back on one q, as the MH step finds it just written
-    (L2 warm); the largest also with L2 cold (`cold_ms`). Returns the
-    largest call's `timed` result, whose `ms` is the cold reading and
-    `warm_ms` the warm one, and the results of all calls by label."""
+def sampler_kernel_case(bundle, theta, what='the MH step'):
+    """Every ppoly_eval call of one likelihood evaluation of `what` (default
+    modes; theta (B, 4): the MH step's 8 chains, a particle sampler's chunk
+    of 64) against the plain version on the same inputs, each timed back to
+    back on one q, as the step finds it just written (L2 warm); the largest
+    also with L2 cold (`cold_ms`). Returns the largest call's `timed`
+    result, whose `ms` is the cold reading and `warm_ms` the warm one, and
+    the results of all calls by label, each with its `lookup` key."""
     import torch
     from victor_tpu_torch.kernels.ppoly import (ppoly_eval_cuda,
                                                 ppoly_eval_plain)
@@ -1320,15 +1401,16 @@ def sampler_kernel_case(bundle, theta):
         out_k = ppoly_eval_cuda(x, coeffs, q, clamp)
         out_p = ppoly_eval_plain(x, coeffs, q, clamp)
         torch.cuda.synchronize()
-        label = (f'ppoly_eval in the MH step ({len(calls)} calls): '
+        label = (f'ppoly_eval in {what} ({len(calls)} calls): '
                  f'coeffs={tuple(coeffs.shape)} q={tuple(q.shape)} '
                  f'clamp={clamp}')
         err = compare_outputs(label, out_k, out_p, q.dtype)
         K = coeffs.shape[1] if coeffs.ndim == 4 else 1
-        results[label] = timed(
+        results[label] = {**timed(
             label, err, lambda: ppoly_eval_cuda(x, coeffs, q, clamp),
             lambda: ppoly_eval_plain(x, coeffs, q, clamp),
-            nbytes(x, coeffs, q, out_k), q.numel() * ppoly_ops(x.shape[0], K))
+            nbytes(x, coeffs, q, out_k), q.numel() * ppoly_ops(x.shape[0], K)),
+            'lookup': lookup_shape(x, coeffs, q, clamp)}
     x, coeffs, q, clamp = max(calls, key=lambda c: c[2].numel())
     cold = cold_ms(x, coeffs, q, clamp)
     largest = max(results.values(), key=lambda r: r['bytes'])
@@ -2149,15 +2231,16 @@ def hessian_checks(bundle, card):
 
 
 class Captured:
-    """Record the arguments and results of a function of
-    victor_tpu_torch.sampling.optimize while a CLI command runs in this
+    """Record the arguments and results of a function of `module` (default
+    victor_tpu_torch.sampling.optimize) while a CLI command runs in this
     process (the CLI imports it at call time), so that the script reads the
     unrounded results."""
 
-    def __init__(self, name):
-        from victor_tpu_torch.sampling import optimize
-        self.module, self.name = optimize, name
-        self.real = getattr(optimize, name)
+    def __init__(self, name, module=None):
+        if module is None:
+            from victor_tpu_torch.sampling import optimize as module
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
         self.calls, self.results = [], []
 
     def __enter__(self):
@@ -2428,6 +2511,500 @@ def esm_fit_check(esm_cfg, esm_bundle, tmp):
     return wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the evidence path
+# ---------------------------------------------------------------------------
+
+class LaunchLog:
+    """While a CLI command runs in this process: the ppoly_eval launches of
+    each call of a sampler's device function (`module.name`: smc._stage,
+    nested._step) and the launches by lookup shape (`lookup_shape`) over
+    the whole command."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.per_call, self.by_lookup = [], {}
+
+    def __enter__(self):
+        from victor_tpu_torch.kernels import ppoly
+        from victor_tpu_torch.ops import splines
+        self.cuda = splines.ppoly_eval_cuda
+
+        def counted(*args):
+            key = lookup_shape(*args)
+            self.by_lookup[key] = self.by_lookup.get(key, 0) + 1
+            return self.cuda(*args)
+
+        def wrapped(*args, **kw):
+            before = ppoly.LAUNCHES
+            out = self.real(*args, **kw)
+            self.per_call.append(ppoly.LAUNCHES - before)
+            return out
+        splines.ppoly_eval_cuda = counted
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from victor_tpu_torch.ops import splines
+        splines.ppoly_eval_cuda = self.cuda
+        setattr(self.module, self.name, self.real)
+
+
+def evidence_path(tmp):
+    """The config of phase 14 (configs/boss_config.yaml with the .npz data
+    and the quadrature's params block QUAD_BLOCK) written into `tmp`."""
+    return write_yaml({**load_config(), 'params': QUAD_BLOCK},
+                      os.path.join(tmp, 'boss_evidence.yaml'))
+
+
+def smc_evals(res, n_moves):
+    """The likelihood evaluations of an SMC run: the initial one of every
+    particle, then one per particle and move of each stage."""
+    return len(res.particles) * (1 + n_moves * (len(res.betas) - 1))
+
+
+def evidence_gate(res, what, logz=QUAD_LOGZ):
+    """An evidence within 3 of its reported se of the quadrature's."""
+    dev = abs(res.logz - logz)
+    check(math.isfinite(res.logz) and dev < 3 * res.logz_se,
+          f'{what}: logZ {res.logz:.4f} +- {res.logz_se:.4f} within 3 se of '
+          f'the quadrature {logz} ({dev / res.logz_se:.2f} se)')
+
+
+def smc_cli(tmp):
+    """Phase 14a: `run --sampler smc` with its defaults (2048 particles, 5
+    moves, seed 0) on QUAD_BLOCK through the CLI, its ppoly_eval launches
+    counted per stage and per lookup. Returns the run's SMCResult, its
+    JSON, the LaunchLog, its launches and seconds."""
+    import numpy as np
+    import torch
+    import victor_tpu_torch.sampling as sampling
+    from victor_tpu_torch.kernels import dispersion, ppoly
+    from victor_tpu_torch.sampling import smc
+
+    root = os.path.join(tmp, 'chains', 'smc')
+    ppoly.LAUNCHES = ppoly.LAUNCHES_MULTI = dispersion.LAUNCHES = 0
+    t0 = time.perf_counter()
+    with LaunchLog(smc, '_stage') as log, \
+            Captured('run_smc', sampling) as cap:
+        out = cli_json(['run', evidence_path(tmp), '--sampler', 'smc',
+                        '--output', root])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (ppoly.LAUNCHES, dispersion.LAUNCHES)
+    res = cap.results[0]
+    stages = out['n_stages']
+    evals = smc_evals(res, 5)
+    print(f"  SMC (2048 particles, 5 moves, default modes): {stages} stages, "
+          f"betas {np.round(res.betas, 4).tolist()}, ESS/N "
+          f"{np.round(res.ess, 3).tolist()}, acceptance "
+          f"{np.round(res.acceptance, 3).tolist()}; logZ {res.logz:.4f} +- "
+          f"{res.logz_se:.4f} (CLT {res.logz_se_clt:.4f}); {out['elapsed_s']}"
+          f' s sampling, {wall:.2f} s with the table build, {evals} '
+          f"evaluations, {evals / out['elapsed_s']:.1f} evals/s", flush=True)
+    print(f'  SMC ppoly_eval launches per stage {log.per_call} (and '
+          f'{launches[0] - sum(log.per_call)} at the initial evaluation); by '
+          f'lookup {log.by_lookup}', flush=True)
+    evidence_gate(res, 'SMC')
+    posterior_gates(out, 'SMC', 0.2, 0.15)
+    check(math.isfinite(out['posterior_predictive_p']),
+          f"SMC posterior-predictive p {out['posterior_predictive_p']}")
+    check(len(log.per_call) == stages and min(log.per_call) > 0 and
+          launches[1] == 0 and sum(log.by_lookup.values()) == launches[0],
+          f'ppoly_eval launched on every SMC stage ({stages}): '
+          f'{launches[0]} launches, all counted by lookup; dispersion_final '
+          f'{launches[1]} (streaming model: 0)')
+    for f in ('1.txt', 'paramnames', 'ranges', 'covmat', 'input.yaml'):
+        check(os.path.isfile(f'{root}.{f}'), f'SMC wrote {root}.{f}')
+    return res, out, log, launches[0], out['elapsed_s']
+
+
+def smc_resume(bundle, full, tmp):
+    """Phase 14b: the library run_smc with 14a's settings (the CLI's YAML
+    round trip sorts the params block), stopped after stage 2 and resumed
+    from its checkpoint, equals 14a's run bit for bit."""
+    import numpy as np
+    from victor_tpu_torch.sampling import run_smc
+
+    ckpt = os.path.join(tmp, 'smc_resume.npz')
+    block = dict(sorted(QUAD_BLOCK.items()))
+    t0 = time.perf_counter()
+    try:
+        run_smc(bundle, block, max_stages=2, checkpoint=ckpt, device='cuda')
+        raise RuntimeError('chip_smoke: run_smc with max_stages=2 finished')
+    except RuntimeError as e:
+        if 'did not reach beta=1' not in str(e):
+            raise
+    res = run_smc(bundle, block, checkpoint=ckpt, resume=True,
+                  device='cuda')
+    check(res.logz == full.logz and np.array_equal(res.betas, full.betas)
+          and np.array_equal(res.particles, full.particles) and
+          np.array_equal(res.aux, full.aux),
+          f'SMC stopped after stage 2 and resumed equals the CLI run bit for '
+          f'bit: logZ {res.logz!r}, {len(res.betas) - 1} stages, the 2048 '
+          f'particles and aux ({time.perf_counter() - t0:.2f} s)')
+
+
+def ns_cli(tmp):
+    """Phase 14c: `run --sampler ns` with its defaults (1024 live points,
+    256 per iteration, 24 steps, dlogz 0.01) on QUAD_BLOCK. Returns the
+    NestedResult, its JSON, the LaunchLog, launches and seconds."""
+    import torch
+    import victor_tpu_torch.sampling as sampling
+    from victor_tpu_torch.kernels import dispersion, ppoly
+    from victor_tpu_torch.sampling import nested
+
+    root = os.path.join(tmp, 'chains', 'ns')
+    ppoly.LAUNCHES = ppoly.LAUNCHES_MULTI = dispersion.LAUNCHES = 0
+    with LaunchLog(nested, '_step') as log, \
+            Captured('run_nested', sampling) as cap:
+        out = cli_json(['run', evidence_path(tmp), '--sampler', 'ns',
+                        '--output', root])
+    torch.cuda.synchronize()
+    res = cap.results[0]
+    print(f"  NS (1024 live, 256 per iteration, 24 steps): {res.n_iter} "
+          f'iterations, {res.n_like} evaluations, logZ {res.logz:.4f} +- '
+          f'{res.logz_se:.4f}, H {res.h:.3f} nats, ESS {res.ess:.0f}, '
+          f"{out['elapsed_s']} s, {res.n_like / out['elapsed_s']:.1f} "
+          f'evals/s; ppoly_eval launches per iteration {sorted(set(log.per_call))}'
+          f' ({ppoly.LAUNCHES} in all), by lookup {log.by_lookup}',
+          flush=True)
+    evidence_gate(res, 'NS')
+    posterior_gates(out, 'NS', 0.2, 0.15)
+    check(len(log.per_call) == res.n_iter and min(log.per_call) > 0 and
+          dispersion.LAUNCHES == 0,
+          f'ppoly_eval launched on every NS iteration ({res.n_iter})')
+    return res, out, log, ppoly.LAUNCHES, out['elapsed_s']
+
+
+def evidence_profile(bundle, particles, card):
+    """Phase 14h (information): the kernels' device time of one SMC stage
+    (2048 particles, 5 moves) and of one NS iteration (256 chains of 24
+    steps over 1024 live points) under torch.profiler, against wall time,
+    both from the posterior particles of 14a (NAMES order)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from victor_tpu_torch.sampling import nested, smc
+    from victor_tpu_torch.sampling.priors import ParamSpace
+    from victor_tpu_torch.sampling.targets import (make_unbounded_wrappers,
+                                                   resolve_target)
+
+    space = ParamSpace(QUAD_BLOCK)            # NAMES order, as `particles`
+    tbl, loglike = resolve_target(bundle, None, None, gradient_free=True)
+    lnprior, batched = make_unbounded_wrappers(space, loglike, CHUNK)
+
+    def lnlike(y):
+        return batched(tbl, y)
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(9)
+    y = space.to_unbounded(torch.as_tensor(particles, device='cuda'))
+    lnl, aux = lnlike(y)
+    lnpri = lnprior(y)
+    n = y.shape[0]
+    w = torch.full((n,), 1.0 / n, dtype=y.dtype, device='cuda')
+    order = torch.argsort(lnl[:1024]).cpu().numpy()
+    live = [t[:1024] for t in (y, lnl, lnpri, aux)]
+    ws = np.zeros(1024)
+    ws[order[256:]] = 1.0 / 768
+    runs = {
+        'SMC stage (2048 particles, 5 moves)': lambda: smc._stage(
+            lnlike, lnprior, y, lnl, lnpri, aux, w, 1.0,
+            smc.draw_stage_noise(gen, n, 4, 5)),
+        'NS iteration (256 chains x 24 steps)': lambda: nested._step(
+            lnlike, lnprior, *live, torch.as_tensor(ws, device='cuda'),
+            torch.as_tensor(order[256:][np.arange(256) % 768],
+                            device='cuda'),
+            torch.as_tensor(order[:256], device='cuda'),
+            float(lnl[order[255]]), 1.0,
+            nested.draw_step_noise(gen, 256, 4, 24))}
+    for label, run in runs.items():
+        # the card's activity only: a stage launches ~10^5 kernels, and the
+        # host ops' records would double the profiler's post-processing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = prof.key_averages()
+        device_us = sum(e.device_time_total for e in events
+                        if e.device_type == DeviceType.CUDA)
+        ppoly_us = sum(e.device_time_total for e in events
+                       if e.device_type == DeviceType.CUDA and
+                       'ppoly' in e.key)
+        top = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.device_time_total)[:3]
+        print(f'  {label} under torch.profiler on {card}: kernels '
+              f'{device_us / 1e3:.2f} ms (ppoly_eval {ppoly_us / 1e3:.2f} ms)'
+              f' of {1e3 * wall:.2f} ms wall ({device_us / 1e4 / wall:.1f}% '
+              f'busy); top: '
+              f'{[(e.key[:40], round(e.device_time_total / 1e3, 2)) for e in top]}',
+              flush=True)
+
+
+def evidence_child(tmp):
+    """Phase 14a-e and g in a process of their own (`--evidence-child`),
+    started beside phase 12d: what the parent needs of them goes to
+    `tmp`/evidence.json (the kernel comparisons at their shapes and the
+    profile of 14h, which time the card, run in the parent once the card
+    is otherwise idle, with 14f)."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.io.tables import build_tables
+
+    cfg = load_config()
+    bundle = build_tables(cfg['model'], cfg['data'], device='cuda',
+                          dtype=torch.float64)
+    print('evidence: SMC through the CLI run (14a)', flush=True)
+    res, out, log, launches, smc_s = smc_cli(tmp)
+    print('evidence: SMC stopped and resumed (14b)', flush=True)
+    smc_resume(bundle, res, tmp)
+    print('evidence: NS through the CLI run (14c)', flush=True)
+    nres, _, nlog, ns_launches, ns_s = ns_cli(tmp)
+    print('evidence: post of the SMC chains and reweight (14d)', flush=True)
+    post_check(bundle, tmp, os.path.join(tmp, 'chains', 'smc'))
+    print('evidence: tension of the data with itself (14e)', flush=True)
+    tension_s = tension_check(tmp)
+    print('evidence: analyze --no-plots (14g)', flush=True)
+    analyze_s = analyze_check(tmp)
+    order = [res.space.names.index(k) for k in NAMES]
+    with open(os.path.join(tmp, 'evidence.json'), 'w') as f:
+        json.dump({'smc_s': smc_s, 'ns_s': ns_s, 'tension_s': tension_s,
+                   'analyze_s': analyze_s, 'smc_stages': out['n_stages'],
+                   'ns_iterations': nres.n_iter,
+                   'smc_evals': smc_evals(res, 5),
+                   'ns_evals': nres.n_like,
+                   'smc_launches': launches, 'ns_launches': ns_launches,
+                   'smc_by_lookup': [[list(k), v] for k, v in
+                                     log.by_lookup.items()],
+                   'ns_by_lookup': [[list(k), v] for k, v in
+                                    nlog.by_lookup.items()],
+                   'particles': np.asarray(res.particles)[:, order].tolist()},
+                  f)
+
+
+def particle_kernel_rows(bundle, ev, card):
+    """Phase 14a's kernel comparison and 14h, in the parent on an otherwise
+    idle card: ppoly_eval against its plain version on the inputs of each
+    lookup of a chunk of 64 of 14a's particles (NAMES order), timed, as
+    kernel rows with their lookup's launches in 14a's SMC run and 14c's NS
+    run (`ns_launches`); then the profile of one SMC stage and one NS
+    iteration (`evidence_profile`)."""
+    import numpy as np
+    import torch
+
+    particles = np.array(ev['particles'])
+    theta = torch.as_tensor(particles[:CHUNK], device='cuda')
+    _, calls = sampler_kernel_case(bundle, theta,
+                                   'a chunk of 64 SMC particles')
+
+    def by_lookup(pairs):
+        return {tuple(tuple(x) if isinstance(x, list) else x for x in k): v
+                for k, v in pairs}
+    smc_counts, ns_counts = (by_lookup(ev['smc_by_lookup']),
+                             by_lookup(ev['ns_by_lookup']))
+    rows = []
+    for label, result in calls.items():
+        key = result['lookup']
+        rows.append(kernel_row(
+            f'ppoly_eval, particle samplers ({label.split(": ")[1]}; '
+            f'launches: this lookup in the SMC run of {ev["smc_stages"]} '
+            f'stages; ns_launches: in the NS run of {ev["ns_iterations"]} '
+            'iterations)', 'ppoly_eval.cu', 'victor_tpu/ops/splines.py:537',
+            smc_counts.get(key, 0), result, torch.float64))
+        rows[-1]['ns_launches'] = ns_counts.get(key, 0)
+    check(all(r['launches'] > 0 and r['ns_launches'] > 0 for r in rows),
+          f'each lookup of the chunk ({len(rows)}) was launched in the SMC '
+          'and the NS run')
+    evidence_profile(bundle, particles, card)
+    return rows
+
+
+def start_evidence_child(tmp):
+    """Phase 14a-e and g in a process of their own, beside phase 12d (as
+    12e): the card is ~6% busy under the host-bound HMC run."""
+    log = open(os.path.join(tmp, 'evidence.log'), 'w+')
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), '--evidence-child', tmp],
+        cwd=REPO, stdout=log, stderr=subprocess.STDOUT, text=True)
+    return proc, log
+
+
+def finish_evidence_child(started, timeout):
+    """Wait for the phase-14 process, print what it printed, fail if it
+    failed, and return what it wrote."""
+    proc, log = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError('chip_smoke: the evidence phase did not finish '
+                           f'within {timeout} s')
+    finally:
+        log.seek(0)
+        print(log.read().rstrip(), flush=True)
+        log.close()
+    check(proc.returncode == 0,
+          f'the evidence phase (its own process) exited {proc.returncode}')
+    with open(os.path.join(os.path.dirname(log.name), 'evidence.json')) as f:
+        return json.load(f)
+
+
+def post_check(bundle, tmp, smc_root):
+    """Phase 14d: `post` of 14a's chains with the gaussian form, then a
+    library reweight of POST_N fixed points against victor_tpu's per-point
+    deltas (POST_GOLDENS)."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.sampling import reweight
+
+    ppoly.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = cli_json(['post', evidence_path(tmp), '--chains', smc_root,
+                    '--set', 'data.likelihood.form=gaussian', '--output',
+                    os.path.join(tmp, 'chains', 'post')])
+    torch.cuda.synchronize()
+    print(f"  post (2048 particles, sellentin -> gaussian): Delta lnZ "
+          f"{out['delta_logz']} +- {out['delta_logz_se']}, efficiency "
+          f"{out['efficiency']}, {time.perf_counter() - t0:.2f} s, "
+          f'ppoly_eval launches {ppoly.LAUNCHES}', flush=True)
+    check(math.isfinite(out['delta_logz']) and out['efficiency'] > 0.5 and
+          ppoly.LAUNCHES > 0,
+          f"post: finite Delta lnZ, efficiency {out['efficiency']} > 0.5, "
+          'through the ppoly_eval kernel')
+    lo = [max(QUAD_MEAN[k] - 3 * QUAD_STD[k], QUAD_BLOCK[k]['prior']['min'])
+          for k in NAMES]
+    hi = [min(QUAD_MEAN[k] + 3 * QUAD_STD[k], QUAD_BLOCK[k]['prior']['max'])
+          for k in NAMES]
+    theta = np.random.default_rng(POST_SEED).uniform(lo, hi,
+                                                     (POST_N, len(NAMES)))
+    res = reweight(bundle, bundle, QUAD_BLOCK, theta,
+                   fit_kw_new={'form': 'gaussian'}, device='cuda')
+    err = float(np.max(np.abs(res.lnl_new - res.lnl_old -
+                              np.array(POST_GOLDENS))))
+    check(err <= 1e-8, f'reweight of {POST_N} points: per-point deltas '
+                       f'within {err:.2e} of victor_tpu (<= 1e-8)')
+
+
+def tension_check(tmp):
+    """Phase 14e: `tension` of the config against itself (1024 particles,
+    4 moves: cut from 4096 x 8 for time)."""
+    from victor_tpu_torch.sampling import smc
+
+    path = evidence_path(tmp)
+    with Captured('run_smc', smc) as cap:
+        out = cli_json(['tension', path, path, '--particles', '1024',
+                        '--moves', '4'])
+    shift = out['parameter_shift']
+    evals = sum(smc_evals(r, 4) for r in cap.results)
+    print(f"  tension (1024 particles, 4 moves): ln R "
+          f"{out['log_evidence_ratio']} +- {out['log_evidence_ratio_se']}, "
+          f"logZ {out['log_evidence']}, shift {shift['n_sigma']} sigma, "
+          f"{out['elapsed_s']} s, {[len(r.betas) - 1 for r in cap.results]} "
+          f'stages, {evals} evaluations (the joint run\'s of both datasets '
+          f"at once), {evals / out['elapsed_s']:.1f} evals/s", flush=True)
+    check(out['verdict'] == 'concordance' and out['log_evidence_ratio'] > 0
+          and shift['n_sigma'] < 1.0,
+          f"tension of the data with itself: {out['verdict']}, ln R "
+          f"{out['log_evidence_ratio']} > 0, shift {shift['n_sigma']} < 1 "
+          'sigma')
+    for what, res in zip(('a', 'b'), cap.results):
+        evidence_gate(res, f'tension run {what}')
+    return out['elapsed_s']
+
+
+def compare_check(tmp):
+    """Phase 14f: `compare` of streaming against dispersion with the fused
+    final stage (1024 particles, 4 moves: cut from 4096 x 8 for time);
+    dispersion_final.cu held against its plain version on the inputs of
+    one of the run's launches."""
+    import torch
+    import victor_tpu_torch.sampling as sampling
+    from victor_tpu_torch.kernels import dispersion
+
+    captured = []
+    real = dispersion.dispersion_final_cuda
+
+    def record(*args):
+        if not captured:
+            captured.append(tuple(t.clone() for t in args))
+        return real(*args)
+
+    path = evidence_path(tmp)
+    dispersion.LAUNCHES = 0
+    dispersion.dispersion_final_cuda = record
+    try:
+        with Captured('run_smc', sampling) as cap:
+            out = cli_json(['compare', path, path, '--set-b',
+                            'model.rsd_model=dispersion', '--set-b',
+                            'model.dispersion_final=fused', '--particles',
+                            '1024', '--moves', '4'])
+    finally:
+        dispersion.dispersion_final_cuda = real
+    torch.cuda.synchronize()
+    launches = dispersion.LAUNCHES
+    ra, rb = cap.results
+    print(f"  compare (streaming vs dispersion, final 'fused'; 1024 "
+          f"particles, 4 moves): Delta lnZ {out['delta_log_evidence']} +- "
+          f"{out['delta_log_evidence_se']} ({out['jeffreys']}), logZ "
+          f"{ra.logz:.4f} / {rb.logz:.4f}, {ra.elapsed_s:.2f} + "
+          f'{rb.elapsed_s:.2f} s, '
+          f'{smc_evals(ra, 4) / ra.elapsed_s:.1f} / '
+          f'{smc_evals(rb, 4) / rb.elapsed_s:.1f} evals/s; dispersion_final '
+          f'launches {launches}', flush=True)
+    check(abs(ra.logz - rb.logz) < 3 * out['delta_log_evidence_se'],
+          f"compare: |Delta lnZ| {abs(ra.logz - rb.logz):.4f} within 3 "
+          f"combined se ({out['delta_log_evidence_se']})")
+    check(launches > 0, f'compare launched dispersion_final: {launches}')
+    result = compare_dispersion(captured[0], torch.float64, planted=False)
+    return launches, result, (ra.elapsed_s, rb.elapsed_s)
+
+
+def analyze_check(tmp):
+    """Phase 14g: `analyze configs/boss_sampling_config.yaml --no-plots`
+    (8 starts and 1024 particles x 4 moves: cut from 16 and 4096 x 8 for
+    time)."""
+    import numpy as np
+    import victor_tpu_torch.sampling as sampling
+    from victor_tpu_torch.sampling.chains import read_covmat, read_getdist
+
+    path = write_yaml(load_config('boss_sampling_config.yaml'),
+                      os.path.join(tmp, 'boss_sampling.yaml'))
+    outdir = os.path.join(tmp, 'analysis')
+    with Captured('find_map') as maps, Captured('run_smc', sampling) as smcs:
+        out = cli_json(['analyze', path, '--no-plots', '--starts', '8',
+                        '--particles', '1024', '--moves', '4', '--output',
+                        outdir])
+    mres, sres = maps.results[0], smcs.results[0]
+    print(f"  analyze: MAP chi2 {mres.chi2:.8f}, logZ {sres.logz:.4f} +- "
+          f"{sres.logz_se:.4f}, times {out['elapsed_s']}, SMC "
+          f'{smc_evals(sres, 4) / sres.elapsed_s:.1f} evals/s', flush=True)
+    check(abs(mres.chi2 - FIT_GOLDENS['chi2']) <= 1e-6,
+          f"analyze: MAP chi2 {mres.chi2:.8f} within 1e-6 of victor_tpu's "
+          f"{FIT_GOLDENS['chi2']:.8f}")
+    evidence_gate(sres, 'analyze')
+    files = ('report.md', 'input.yaml', 'chains.1.txt', 'chains.paramnames',
+             'chains.ranges', 'chains.covmat')
+    check(all(os.path.isfile(os.path.join(outdir, f)) for f in files),
+          f'analyze wrote {files}')
+    names, w, _, samples = read_getdist(os.path.join(outdir, 'chains'))
+    cov = read_covmat(os.path.join(outdir, 'chains.covmat'), names[:4])
+    check(samples.shape == (1024, 5) and np.isfinite(samples).all() and
+          np.isfinite(cov).all(),
+          f'analyze chains read back: {samples.shape}, covmat {cov.shape}')
+    with open(os.path.join(outdir, 'report.md')) as f:
+        sections = [ln for ln in f.read().splitlines() if ln.startswith('##')]
+    check(sections == ['## Best fit', '## Goodness of fit',
+                       sections[2], '## Notes'] and
+          sections[2].startswith('## Posterior (tempered SMC'),
+          f'analyze report sections {sections}')
+    return out['elapsed_s']
+
+
 def kernel_row(name, source, replaces, launches, result, dtype,
                calls=None):
     """One entry of the kernels summary line from a comparison's `timed`
@@ -2460,6 +3037,10 @@ def main() -> int:
                         help='run phase 12e (NUTS through the CLI) alone, '
                              'writing into DIR; the full run starts this '
                              'itself beside phase 12d')
+    parser.add_argument('--evidence-child', metavar='DIR',
+                        help='run phases 14a-e and g (SMC, NS, post, '
+                             'tension, analyze) alone, writing into DIR; the '
+                             'full run starts this itself beside phase 12d')
     args = parser.parse_args()
 
     import dataclasses
@@ -2486,6 +3067,9 @@ def main() -> int:
 
     if args.nuts_child:
         nuts_cli(load_config(), args.nuts_child)
+        return 0
+    if args.evidence_child:
+        evidence_child(args.evidence_child)
         return 0
 
     # ---- 2. build the kernels ----
@@ -2604,6 +3188,11 @@ def main() -> int:
         joint_fit(cfg, bundle, tmp)
     mh_step_rates(bundle, card, args.profile)
 
+    # phase 14's files outlive phase 12's temporary directory; removed at
+    # the end, or at exit after a failure
+    evidence_dir = tempfile.TemporaryDirectory()
+    evidence_tmp = evidence_dir.name
+
     # ---- 12. the gradient path ----
     print('gradients: the backward kernel', flush=True)
     bwd_results = backward_phase(bundle, gen)
@@ -2612,11 +3201,12 @@ def main() -> int:
     print('gradients: d lnL / d theta against jax.grad', flush=True)
     grad_checks(bundle)
     with tempfile.TemporaryDirectory() as tmp:
-        print('sampling: HMC through the CLI run, NUTS and phase 13c\'s '
-              'fit beside it', flush=True)
+        print('sampling: HMC through the CLI run, NUTS, phase 13c\'s fit '
+              'and phase 14\'s evidence runs beside it', flush=True)
         t0 = time.perf_counter()
         child = start_nuts_child(tmp)
         fit_child = start_fit_cli(tmp)
+        evidence = start_evidence_child(evidence_tmp)
         try:
             hmc_launches, leapfrogs, hmc_s, hmc_draws, hmc_rm1 = hmc_cli(
                 cfg, tmp)
@@ -2625,8 +3215,11 @@ def main() -> int:
             print('optimizers (13c): fit through the CLI in a subprocess',
                   flush=True)
             finish_fit_cli(fit_child, timeout=600)
+            print('evidence (14a-e, g): SMC, NS, post, tension and analyze in '
+                  'a process of their own', flush=True)
+            ev = finish_evidence_child(evidence, timeout=600)
         finally:
-            for proc in (child, fit_child[0]):
+            for proc in (child, fit_child[0], evidence[0]):
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
@@ -2656,6 +3249,21 @@ def main() -> int:
         print('optimizers: the ESM fit through the CLI', flush=True)
         esm_fit_check(esm_cfg, esm_bundle, tmp)
     print(f'  phase 13: {time.perf_counter() - t13:.2f} s', flush=True)
+
+    # ---- 14. the evidence path: post, tension, compare, analyze ----
+    t14 = time.perf_counter()
+    print("evidence: ppoly_eval at the particle samplers' chunk of 64 (14a) "
+          'and the device time per stage and iteration (14h)', flush=True)
+    particle_rows = particle_kernel_rows(bundle, ev, card)
+    print("evidence: compare streaming with dispersion, final 'fused' (14f)",
+          flush=True)
+    cmp_launches, cmp_result, cmp_s = compare_check(evidence_tmp)
+    print(f"  phase 14 (for information, {card}): beside 12d SMC "
+          f"{ev['smc_s']} s ({ev['smc_evals'] / ev['smc_s']:.1f} evals/s), "
+          f"NS {ev['ns_s']} s ({ev['ns_evals'] / ev['ns_s']:.1f} evals/s), "
+          f"tension {ev['tension_s']} s, analyze {ev['analyze_s']}; compare "
+          f'{cmp_s[0]:.2f} + {cmp_s[1]:.2f} s; the parent\'s part of phase '
+          f'14 {time.perf_counter() - t14:.2f} s', flush=True)
 
     f64 = torch.float64
     print(f'card: {card}', flush=True)
@@ -2692,7 +3300,13 @@ def main() -> int:
                    f'calls, each one `ms`)', 'ppoly_eval.cu',
                    'victor_tpu/ops/splines.py:205', per_lookup[key][1], res,
                    f64, calls=per_lookup[key][0])
-        for key, (label, res) in hess_results.items()]}), flush=True)
+        for key, (label, res) in hess_results.items()] + particle_rows + [
+        kernel_row("dispersion_final, compare's dispersion run (final "
+                   "'fused', 1024 particles, chunk of 64)",
+                   'dispersion_final.cu',
+                   'victor_tpu/ops/dispersion_pallas.py:32', cmp_launches,
+                   cmp_result, f64)]}), flush=True)
+    evidence_dir.cleanup()
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

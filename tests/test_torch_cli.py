@@ -214,15 +214,72 @@ def test_run_ensemble_and_cobaya_nesting(sampling_cfg, tmp_path, capsys):
 
 
 @pytest.mark.parametrize('how', ['smc', 'ns', 'polychord'])
-def test_unported_samplers_exit(sampling_cfg, tmp_path, how):
+def test_unported_samplers_exit(sampling_cfg, narrow, tmp_path, capsys,
+                                monkeypatch, how):
+    """smc, ns and cobaya's polychord: nesting used to exit here as not
+    ported; they now run through `run` and print victor_tpu's JSON keys
+    (posterior_predictive_p included) with the GetDist files, and the
+    nesting maps nlive -> n_live, precision_criterion -> dlogz and
+    num_repeats -> n_steps."""
+    import victor_tpu_torch.sampling as tsampling
     cfg = copy.deepcopy(sampling_cfg)
-    args = []
+    root = str(tmp_path / 'out' / how)
     if how == 'polychord':
-        cfg['sampler'] = {'polychord': {'nlive': 100}}
+        cfg['sampler'] = {'polychord': {'nlive': 16, 'precision_criterion':
+                                        0.5, 'num_repeats': 1}}
+        args = []
+    elif how == 'smc':
+        args = ['--sampler', 'smc', '--particles', '16', '--moves', '1']
     else:
-        args = ['--sampler', how]
-    with pytest.raises(SystemExit, match='not ported yet'):
-        tmain(['run', _write(tmp_path, cfg)] + args + ['--device', 'cpu'])
+        args = ['--sampler', 'ns', '--live', '16', '--ns-steps', '1',
+                '--dlogz', '0.5']
+    seen = {}
+    real = tsampling.run_nested
+
+    def spy(bundle, block, **kw):
+        seen.update(kw)
+        return real(bundle, block, **kw)
+    monkeypatch.setattr(tsampling, 'run_nested', spy)
+    tmain(['run', _write(tmp_path, cfg), '--seed', '2', '--output', root,
+           '--device', 'cpu'] + args)
+    out = _json(capsys)
+    keys = {'sampler', 'log_evidence', 'log_evidence_se', 'elapsed_s',
+            'summary', 'posterior_predictive_p'}
+    if how == 'smc':
+        keys |= {'n_particles', 'n_stages', 'log_evidence_se_clt'}
+    else:
+        keys |= {'n_live', 'n_iterations', 'n_likelihood_evals',
+                 'information_nats', 'posterior_ess'}
+        assert (seen['n_live'], seen['n_steps'], seen['dlogz']) == \
+            (16, 1, 0.5)
+        assert out['n_likelihood_evals'] == 16 + 4 * out['n_iterations']
+    assert set(out) == keys and out['sampler'] == ('smc' if how == 'smc'
+                                                  else 'ns')
+    assert np.isfinite(out['log_evidence'])
+    assert 0.0 <= out['posterior_predictive_p'] <= 1.0
+    assert set(out['summary']) == set(cfg['params'])
+    for ext in ('1.txt', 'paramnames', 'ranges', 'covmat', 'input.yaml'):
+        assert os.path.isfile(f'{root}.{ext}'), ext
+
+
+def test_run_smc_json_matches_victor_tpu(sampling_cfg, narrow, tmp_path,
+                                         capsys, monkeypatch):
+    """victor_tpu's `run --sampler smc` printing the port's result gives the
+    port's JSON byte for byte: the same keys, rounding and p-value."""
+    import victor_tpu.sampling as jsampling
+    import victor_tpu_torch.sampling as tsampling
+    path = _write(tmp_path, sampling_cfg)
+    results = []
+    real = tsampling.run_smc
+    monkeypatch.setattr(tsampling, 'run_smc', lambda *a, **kw: results.append(
+        real(*a, **kw)) or results[-1])
+    args = ['run', path, '--sampler', 'smc', '--particles', '16', '--moves',
+            '1']
+    tmain(args + ['--device', 'cpu'])
+    got = capsys.readouterr().out
+    monkeypatch.setattr(jsampling, 'run_smc', lambda *a, **kw: results[0])
+    jmain(args)
+    assert capsys.readouterr().out == got
 
 
 def test_bench_output(sampling_cfg, tmp_path, capsys):
@@ -257,9 +314,14 @@ def test_port_logs_under_its_own_namespace(caplog):
 def test_default_device_is_the_card(sampling_cfg, tmp_path):
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
-    for cmd in ('eval', 'run', 'bench', 'fit', 'scan', 'forecast'):
+    path = _write(tmp_path, sampling_cfg)
+    for cmd in ('eval', 'run', 'bench', 'fit', 'scan', 'forecast', 'analyze'):
         with pytest.raises(RuntimeError, match='--device cpu'):
-            tmain([cmd, _write(tmp_path, sampling_cfg)])
+            tmain([cmd, path])
+    for argv in (['post', path, '--chains', path], ['tension', path, path],
+                 ['compare', path, path]):
+        with pytest.raises(RuntimeError, match='--device cpu'):
+            tmain(argv)
 
 
 # ---------------------------------------------------------------------------
@@ -398,3 +460,170 @@ def test_forecast_matches_victor_tpu(sampling_cfg, narrow, tmp_path, capsys):
     with pytest.raises(SystemExit, match='derived'):
         tmain(['forecast', _write(tmp_path, cfg, 'derived.yaml'),
                '--param', 'aperp=1.0', '--device', 'cpu'])
+
+
+# ---------------------------------------------------------------------------
+# the evidence commands: analyze, post, tension, compare
+# ---------------------------------------------------------------------------
+
+def _capture(monkeypatch, module, name):
+    """Record the results of `module.name` while a CLI command runs."""
+    results = []
+    real = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        results.append(real(*args, **kw))
+        return results[-1]
+    monkeypatch.setattr(module, name, wrapped)
+    return results
+
+
+def _replay(monkeypatch, module, name, results):
+    """`module.name` returns `results` in turn (victor_tpu's CLI printing
+    the port's results)."""
+    queue = list(results)
+    monkeypatch.setattr(module, name, lambda *a, **kw: queue.pop(0))
+
+
+def test_post_matches_victor_tpu(sampling_cfg, narrow, tmp_path, capsys):
+    """`post --set data.likelihood.form=gaussian` on the chains of a short
+    SMC run: the port's JSON against victor_tpu's on the same chains —
+    the same keys, Delta ln Z, ESS and moments at the printed rounding —
+    and the reweighted chain files."""
+    from victor_tpu_torch.sampling.chains import read_getdist
+    path = _write(tmp_path, sampling_cfg)
+    root = str(tmp_path / 'c' / 'smc')
+    tmain(['run', path, '--sampler', 'smc', '--particles', '24', '--moves',
+           '1', '--seed', '4', '--output', root, '--device', 'cpu'])
+    capsys.readouterr()
+    outs = {}
+    for name, main, extra in (('j', jmain, []),
+                              ('t', tmain, ['--device', 'cpu'])):
+        main(['post', path, '--chains', root, '--set',
+              'data.likelihood.form=gaussian', '--chunk', '8',
+              '--output', str(tmp_path / name / 'post')] + extra)
+        outs[name] = _json(capsys)
+    got, want = outs['t'], outs['j']
+    assert set(got) == set(want) and got['n_particles'] == 24
+    for k in ('delta_logz', 'delta_logz_se', 'ess', 'efficiency'):
+        assert abs(got[k] - want[k]) <= 1e-4, k
+    assert got['params_old'] == want['params_old']
+    for name in got['params_new']:
+        for m in ('mean', 'std'):
+            assert abs(got['params_new'][name][m] -
+                       want['params_new'][name][m]) <= 2e-6 * max(
+                1.0, abs(want['params_new'][name][m]))
+    names, w, mlnp, _ = read_getdist(str(tmp_path / 't' / 'post'))
+    assert names[-1] == 'chi2_ccf_correct' and w.shape == (24,)
+    assert w.mean() == pytest.approx(1.0, abs=1e-6)
+    with pytest.raises(SystemExit, match='modified target'):
+        tmain(['post', path, '--chains', root, '--device', 'cpu'])
+
+
+def test_tension_json_matches_victor_tpu(sampling_cfg, narrow, tmp_path,
+                                         capsys, monkeypatch):
+    """`tension cfg cfg` (a dataset against itself): concordance, ln R > 0,
+    and victor_tpu's CLI printing the port's TensionResult gives the port's
+    JSON byte for byte; a second config with another params block is
+    refused."""
+    import victor_tpu.sampling.tension as jtension
+    import victor_tpu_torch.sampling.tension as ttension
+    cfg = copy.deepcopy(sampling_cfg)
+    cfg['params'] = {k: cfg['params'][k] for k in ('fsigma8', 'beta')}
+    cfg['params'].update(sigma_v=380.0, epsilon=1.0)
+    path = _write(tmp_path, cfg)
+    results = _capture(monkeypatch, ttension, 'run_tension')
+    args = ['tension', path, path, '--particles', '128', '--moves', '2',
+            '--seed', '3']
+    tmain(args + ['--device', 'cpu'])
+    got = capsys.readouterr().out
+    out = json.loads(got)
+    assert out['verdict'] == 'concordance' and out['log_evidence_ratio'] > 0
+    assert out['shared_params'] == ['beta', 'fsigma8']
+    _replay(monkeypatch, jtension, 'run_tension', results)
+    jmain(args)
+    assert capsys.readouterr().out == got
+    other = copy.deepcopy(cfg)
+    other['params']['epsilon'] = 1.05
+    with pytest.raises(SystemExit, match='share ONE params'):
+        tmain(['tension', path, _write(tmp_path, other, 'b.yaml'),
+               '--device', 'cpu'])
+
+
+def test_compare_json_matches_victor_tpu(sampling_cfg, narrow, tmp_path,
+                                         capsys, monkeypatch):
+    """`compare cfg cfg --set-b model.rsd_model=kaiser`: the runs keyed 'a'
+    and 'b' with their overrides, and victor_tpu's CLI printing the port's
+    two SMC results gives the port's JSON byte for byte."""
+    import victor_tpu.sampling as jsampling
+    import victor_tpu_torch.sampling as tsampling
+    path = _write(tmp_path, sampling_cfg)
+    results = _capture(monkeypatch, tsampling, 'run_smc')
+    args = ['compare', path, path, '--set-b', 'model.rsd_model=kaiser',
+            '--particles', '16', '--moves', '1', '--seed', '5']
+    tmain(args + ['--device', 'cpu'])
+    got = capsys.readouterr().out
+    out = json.loads(got)
+    assert out['a']['set'] == [] and \
+        out['b']['set'] == ['model.rsd_model=kaiser']
+    assert out['favored'] in ('a', 'b') and len(results) == 2
+    _replay(monkeypatch, jsampling, 'run_smc', results)
+    jmain(args)
+    assert capsys.readouterr().out == got
+
+
+def test_analyze_no_plots_writes_the_report(sampling_cfg, narrow, tmp_path,
+                                            capsys, monkeypatch):
+    """`analyze --no-plots`: report.md with victor_tpu's sections (victor_tpu's
+    analyze, given the port's MAP and SMC results, writes the same headings
+    and the same JSON apart from the times), input.yaml, GetDist chains
+    that read back, and the covmat."""
+    import victor_tpu.sampling as jsampling
+    import victor_tpu.sampling.optimize as joptimize
+    import victor_tpu_torch.sampling as tsampling
+    import victor_tpu_torch.sampling.optimize as toptimize
+    from victor_tpu_torch.sampling.chains import read_covmat, read_getdist
+    path = _write(tmp_path, sampling_cfg)
+    maps = _capture(monkeypatch, toptimize, 'find_map')
+    smcs = _capture(monkeypatch, tsampling, 'run_smc')
+    args = ['analyze', path, '--no-plots', '--starts', '2', '--adam-steps',
+            '20', '--particles', '24', '--moves', '1']
+    tmain(args + ['--output', str(tmp_path / 't'), '--device', 'cpu'])
+    got = _json(capsys)
+    files = set(os.listdir(tmp_path / 't'))
+    assert {'report.md', 'input.yaml', 'chains.1.txt', 'chains.paramnames',
+            'chains.ranges', 'chains.covmat'} <= files
+    names, w, _, samples = read_getdist(str(tmp_path / 't' / 'chains'))
+    # the config's YAML round trip sorts the params block
+    assert names == sorted(sampling_cfg['params']) + ['chi2_ccf_correct']
+    assert samples.shape == (24, 5) and np.isfinite(samples).all()
+    assert read_covmat(str(tmp_path / 't' / 'chains.covmat'),
+                       names[:4]).shape == (4, 4)
+    _replay(monkeypatch, joptimize, 'find_map', maps)
+    _replay(monkeypatch, jsampling, 'run_smc', smcs)
+    jmain(args + ['--output', str(tmp_path / 'j')])
+    want = _json(capsys)
+    got.pop('report'), want.pop('report')
+    got.pop('elapsed_s'), want.pop('elapsed_s')
+    assert got == want
+
+    def headings(d):
+        # the sections and the table, the wall times aside
+        import re
+        with open(tmp_path / d / 'report.md') as f:
+            return [re.sub(r'[0-9.]+ s\)', 's)', ln)
+                    for ln in f.read().splitlines()
+                    if ln.startswith('#') or ln.startswith('|')]
+    assert headings('t')[1:] == headings('j')[1:]
+    assert headings('t')[0].replace('victor_tpu_torch', 'victor_tpu') == \
+        headings('j')[0]
+
+
+def test_analyze_without_no_plots_exits(sampling_cfg, tmp_path):
+    """The figures need plottools.py and api.CCFFit, not ported yet: without
+    --no-plots analyze exits before any work, naming ROADMAP item 9."""
+    out = tmp_path / 'never'
+    with pytest.raises(SystemExit, match='item 9'):
+        tmain(['analyze', _write(tmp_path, sampling_cfg), '--output',
+               str(out), '--device', 'cpu'])
+    assert not out.exists()

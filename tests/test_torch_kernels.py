@@ -420,7 +420,7 @@ def test_cuda_tensors_launch_the_kernel_through_ops(cuda_device):
     r = np.sort(rng.uniform(1.0, 120.0, 25))
     mu = np.linspace(0.0, 1.0, 21)
     z = sum(np.outer(np.sin(r / (10.0 + 7 * k)), mu ** k) for k in range(3))
-    surf = tsp.Bicubic2D.build(r, mu, z)
+    surf = tsp.Bicubic2D.build(r, mu, z, device='cpu')
     p = rng.uniform(0.0, 1.0, q.shape)
     calls = [lambda dev, s: tsp.ppoly_eval(_t(x).to(dev), _t(c).to(dev),
                                            _t(q).to(dev)),
@@ -659,7 +659,7 @@ def test_autograd_runs_the_backward_kernel_through_ops(cuda_device):
     r = np.sort(rng.uniform(1.0, 120.0, 25))
     mu = np.linspace(0.0, 1.0, 21)
     z = sum(np.outer(np.sin(r / (10.0 + 7 * k)), mu ** k) for k in range(3))
-    surf = tsp.Bicubic2D.build(r, mu, z)
+    surf = tsp.Bicubic2D.build(r, mu, z, device='cpu')
     p = rng.uniform(0.0, 1.0, q.shape)
     calls = [lambda dev, s, qq, cc: tsp.ppoly_eval(_t(x).to(dev), cc, qq),
              lambda dev, s, qq, cc: tsp.ppoly_eval(_t(x).to(dev), cc[0], qq,

@@ -116,7 +116,7 @@ def test_spline1d_matches_jax(clamp):
     x = _knots(rng, 31)
     y = rng.standard_normal((4, 31))
     q = _queries(rng, x, (4, 300))
-    ts = tsp.Spline1D.build(x, clamp=clamp)
+    ts = tsp.Spline1D.build(x, clamp=clamp, device='cpu')
     js = jsp.Spline1D.build(x, clamp=clamp)
     got_c = ts.coeffs(_t(y)).numpy()
     want_c = np.asarray(jax.vmap(js.coeffs)(jnp.asarray(y)))
@@ -140,7 +140,8 @@ def test_pchip_eval_and_table_match_jax():
         jnp.asarray(grid), jnp.asarray(coeffs), b))(jnp.asarray(beta)))
     assert got.shape == (len(beta), 2, 30)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
-    scalar = tsp.PchipTable.build(grid, table)(_t(beta[3])).numpy()
+    scalar = tsp.PchipTable.build(grid, table, device='cpu')(
+        _t(beta[3])).numpy()
     np.testing.assert_allclose(scalar, want[3], rtol=0, atol=ATOL)
 
 
@@ -157,7 +158,7 @@ def _surface(kind, rng):
 def test_bicubic2d_matches_jax(kind):
     rng = np.random.default_rng(8)
     r, mu, z = _surface(kind, rng)
-    tb = tsp.Bicubic2D.build(r, mu, z)
+    tb = tsp.Bicubic2D.build(r, mu, z, device='cpu')
     jb = jsp.Bicubic2D.build(r, mu, z)
     assert tb.y_const == jb.y_const == (kind == 'rank1_y_const')
     for leaf in ('x', 'y', 'cu', 'cv'):
@@ -191,7 +192,7 @@ def test_chebyshev_fit_and_eval_match_jax(degree):
     y = rng.standard_normal((3, 31))
     resc = rng.uniform(0.95, 1.05, 3)
     a, b = x[0] * resc, x[-1] * resc
-    ts, js = tsp.Spline1D.build(x), jsp.Spline1D.build(x)
+    ts, js = tsp.Spline1D.build(x, device='cpu'), jsp.Spline1D.build(x)
     c = ts.coeffs(_t(y))
     coef = tsp.chebyshev_fit(lambda r: ts.eval(c, r / _t(resc)[:, None]),
                              _t(a), _t(b), degree)
@@ -222,3 +223,19 @@ def test_chebyshev_interpolates_at_its_nodes():
     rn = 0.5 * (a + b)[:, None] + 0.5 * (b - a)[:, None] * _t(nodes)
     np.testing.assert_allclose(tsp.chebyshev_eval(coef, a, b, rn).numpy(),
                                fn(rn).numpy(), rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize('kind', ['Spline1D', 'PchipTable', 'Bicubic2D'])
+def test_spline_build_defaults_to_the_card(kind):
+    """The public `build` methods put their tables on the card unless the
+    caller asks for the CPU: without a card, the default raises and names
+    device='cpu' (no quiet fallback); with device='cpu' they build."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    x = np.linspace(0.0, 1.0, 7)
+    args = {'Spline1D': (x,), 'PchipTable': (x, np.sin(x)),
+            'Bicubic2D': (x, x, np.outer(np.sin(x), np.cos(x)))}[kind]
+    cls = getattr(tsp, kind)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cls.build(*args)
+    assert cls.build(*args, device='cpu').x.device.type == 'cpu'

@@ -243,7 +243,9 @@ print(' '.join(names))
         '__main__', 'utils.logging', 'likelihood.multiquantile',
         'sampling.priors', 'sampling.diagnostics', 'sampling.ensemble',
         'sampling.chains', 'sampling.targets', 'sampling.hmc', 'sampling.mh',
-        'sampling.nuts', 'sampling.runner', 'kernels.ppoly')} <= names
+        'sampling.nuts', 'sampling.runner', 'sampling.smc',
+        'sampling.nested', 'sampling.post', 'sampling.tension',
+        'kernels.ppoly')} <= names
     assert len(names) >= 28
     # the backward kernel is built from the forward's source, and launched
     # from the module imported above

@@ -4,21 +4,26 @@
     python -m victor_tpu_torch eval <config.yaml>     # one likelihood evaluation
     python -m victor_tpu_torch fit <config.yaml>      # MAP + Laplace errors
     python -m victor_tpu_torch scan <config.yaml> --param fsigma8
+    python -m victor_tpu_torch analyze <config.yaml> --no-plots  # MAP + SMC report
+    python -m victor_tpu_torch post <config.yaml> --chains <root> --set ...
+    python -m victor_tpu_torch tension <a.yaml> <b.yaml>   # ln R + parameter shift
+    python -m victor_tpu_torch compare <a.yaml> <b.yaml>   # Delta ln Z
     python -m victor_tpu_torch forecast <config.yaml> # Fisher forecast
     python -m victor_tpu_torch bench <config.yaml>    # batched throughput
 
-The port of `victor_tpu/__main__.py`'s `run`, `eval`, `fit`, `scan`,
-`forecast` and `bench`, with its defaults and JSON output and the arguments
-of the samplers ported so far, plus `--device` (default `cuda`; `--device
-cpu` runs on the host). The YAML layout extends the reference's cobaya
-config: `model:`/`data:` blocks (reference schema), a `params:` block
-(cobaya vocabulary, config/boss_cobaya_config.yaml:50-97), and an optional
+The port of `victor_tpu/__main__.py`'s commands, with their defaults and
+JSON output, plus `--device` (default `cuda`; `--device cpu` runs on the
+host). The YAML layout extends the reference's cobaya config:
+`model:`/`data:` blocks (reference schema), a `params:` block (cobaya
+vocabulary, config/boss_cobaya_config.yaml:50-97), and an optional
 `sampler:` block (kind — default mh, the cobaya algorithm class — hmc,
-nuts or ensemble; n_chains, n_samples, n_warmup, n_leapfrog, max_depth,
-rhat_stop, seed, output, checkpoint, covmat; cobaya's own `mcmc:` nesting
-maps to mh and its `minimize:` nesting to `fit`). A top-level `quantiles:`
-list is a multi-quantile joint fit. The samplers smc and ns, and cobaya's
-`polychord:` nesting, are not ported yet and exit with a message.
+nuts, ensemble, smc or ns; n_chains, n_samples, n_warmup, n_leapfrog,
+max_depth, rhat_stop, n_particles, n_moves, ess_target, n_live, n_batch,
+n_steps, dlogz, seed, output, checkpoint, covmat; cobaya's own `mcmc:`
+nesting maps to mh, its `polychord:` nesting to ns and its `minimize:`
+nesting to `fit`). A top-level `quantiles:` list is a multi-quantile joint
+fit. `analyze`'s figures are not ported yet and exit with a message:
+`analyze --no-plots` writes the rest of the report.
 """
 
 from __future__ import annotations
@@ -28,8 +33,10 @@ import json
 import sys
 import time
 
-_NOT_PORTED = ("is not ported yet: victor_tpu_torch runs the samplers mh "
-               "(the default), hmc, nuts and ensemble; use victor_tpu for it")
+_NOT_PORTED = ("analyze's figures (the corner plot and the data-vs-model "
+               "multipoles) need plottools.py and api.CCFFit, which are not "
+               "ported yet (ROADMAP item 9): pass --no-plots for the report, "
+               "chains and covmat without them, or use victor_tpu")
 # (warmup, draws, segment length) of each chain sampler when the config and
 # the command line give none: MH's draws are one likelihood call each but
 # mix slowly; NUTS's draw count is a cap under its default rhat_stop
@@ -221,8 +228,16 @@ def cmd_run(args):
             seed=seed, covmat_out=covmat_out, bootstrap=0,
             device=args.device))
     if isinstance(sampler.get('polychord'), dict):
-        sampler.pop('polychord')
+        # cobaya's PolyChord wrapper is its nested sampler: map the nesting
+        # to `--sampler ns` (sampling/nested.py) with its vocabulary —
+        # nlive -> n_live, precision_criterion -> dlogz (evidence
+        # termination), num_repeats -> n_steps (chain steps per replacement)
+        pc = sampler.pop('polychord')
         sampler.setdefault('kind', 'ns')
+        for src, dst in (('nlive', 'n_live'), ('precision_criterion', 'dlogz'),
+                         ('num_repeats', 'n_steps')):
+            if src in pc:
+                sampler.setdefault(dst, pc[src])
     # default sampler: adaptive random-walk Metropolis — the reference's own
     # algorithm class (cobaya mcmc, config/boss_cobaya_config.yaml:44)
     kind = args.sampler or sampler.get('kind')
@@ -241,10 +256,53 @@ def cmd_run(args):
                 "sampler.kind: ensemble (or --sampler ensemble) to keep "
                 'the old ensemble behavior, or retune with mh keys '
                 '(n_chains/n_samples/n_warmup)', ', '.join(ensemble_only))
-    if kind not in ('mh', 'hmc', 'nuts', 'ensemble'):
-        sys.exit(f'sampler {kind!r} {_NOT_PORTED}')
     bundle = _build_bundle(cfg, args.device)
+    ckpt = sampler.get('checkpoint', args.checkpoint)
 
+    if kind == 'smc':
+        from .sampling import run_smc
+        result = run_smc(
+            bundle, params_block,
+            n_particles=int(sampler.get('n_particles', args.particles)),
+            n_moves=int(sampler.get('n_moves', args.moves)),
+            ess_target=float(sampler.get('ess_target', 0.5)),
+            seed=seed, checkpoint=ckpt, resume=args.resume, output=out_root,
+            device=args.device)
+        out = {'sampler': 'smc', 'n_particles': len(result.particles),
+               'n_stages': len(result.betas) - 1,
+               'log_evidence': round(result.logz, 3),
+               # correlation-inflated se (covers the measured
+               # seed-to-seed scatter); raw CLT se for reference
+               'log_evidence_se': round(result.logz_se, 3),
+               'log_evidence_se_clt': round(result.logz_se_clt, 3),
+               'elapsed_s': round(result.elapsed_s, 2),
+               'summary': result.summary()}
+        _add_ppp(out, bundle, result)
+        print(json.dumps(_json_sanitize(out), indent=2))
+        return
+    if kind == 'ns':
+        from .sampling import run_nested
+        n_batch = sampler.get('n_batch', args.ns_batch)
+        result = run_nested(
+            bundle, params_block,
+            n_live=int(sampler.get('n_live', args.live)),
+            n_batch=None if n_batch is None else int(n_batch),
+            n_steps=int(sampler.get('n_steps', args.ns_steps)),
+            dlogz=float(sampler.get('dlogz', args.dlogz)),
+            seed=seed, checkpoint=ckpt, resume=args.resume, output=out_root,
+            device=args.device)
+        out = {'sampler': 'ns', 'n_live': result.n_live,
+               'n_iterations': result.n_iter,
+               'n_likelihood_evals': result.n_like,
+               'log_evidence': round(result.logz, 3),
+               'log_evidence_se': round(result.logz_se, 3),
+               'information_nats': round(result.h, 3),
+               'posterior_ess': round(result.ess, 1),
+               'elapsed_s': round(result.elapsed_s, 2),
+               'summary': result.summary()}
+        _add_ppp(out, bundle, result)
+        print(json.dumps(_json_sanitize(out), indent=2))
+        return
     if kind in _CHAIN_DEFAULTS:
         n_chains = int(sampler.get('n_chains', args.chains))
         warmup, samples, segment = _CHAIN_DEFAULTS[kind]
@@ -252,7 +310,6 @@ def cmd_run(args):
             int(sampler.get('n_warmup', warmup))
         n_samples = args.samples if args.samples is not None else \
             int(sampler.get('n_samples', samples))
-        ckpt = sampler.get('checkpoint', args.checkpoint)
         if args.resume and ckpt and os.path.isfile(ckpt):
             # a resumed run keeps the checkpoint's chain count, and the
             # GetDist files are split by it
@@ -322,6 +379,17 @@ def cmd_run(args):
                  f'{max_rm1:.3g} >= {ens_rhat_stop:g} after '
                  f'{result.n_steps} steps). Raise sampler.max_steps / '
                  f'n_walkers, or use the default sampler mh.')
+
+
+def _add_ppp(out, bundle, result):
+    """The posterior-predictive p-value from the particles' recorded chi2
+    column (sampling/gof.py), for bundle targets: a callable target's aux
+    need not be a chi2."""
+    if hasattr(bundle, 'fit_opts'):
+        from .sampling.gof import posterior_predictive_pvalue
+        out['posterior_predictive_p'] = round(posterior_predictive_pvalue(
+            result.aux[:, 0], _ndata(bundle), bundle.fit_opts.form,
+            bundle.fit_opts.nmocks), 4)
 
 
 def _reference_point(space):
@@ -552,6 +620,296 @@ def cmd_scan(args):
     print(json.dumps(out, indent=2))
 
 
+def cmd_analyze(args):
+    """One-command full analysis: MAP + Laplace errors, then a tempered-SMC
+    posterior (GetDist chains + log-evidence), written up as a report.
+
+    The report quotes central 68% credible intervals as the headline
+    numbers — the interval type whose coverage is measured to be nominal
+    for every parameter including beta (tools/coverage_test.py --method
+    smc/sbc; BASELINE.md round 3) — alongside the MAP and Laplace sigmas.
+    The figures are not ported yet: without --no-plots the command exits
+    before any work.
+    """
+    import os
+
+    import numpy as np
+
+    from .sampling import run_smc
+    from .sampling.optimize import find_map
+
+    if not args.no_plots:
+        sys.exit(f'analyze: {_NOT_PORTED}')
+    cfg = _apply_set(_load(args.config), args.set)
+    if not _has_data(cfg):
+        sys.exit('analyze requires a data: block (data vector + covariance)')
+    params_block = cfg.get('params')
+    if not params_block:
+        sys.exit('config must contain a params: block')
+    bundle = _build_bundle(cfg, args.device)
+
+    outdir = args.output or (
+        os.path.splitext(os.path.basename(args.config))[0] + '_analysis')
+    os.makedirs(outdir, exist_ok=True)
+    # reproducibility snapshot: the config as analyzed (incl. --set
+    # overrides) next to the report — cobaya's <root>.input.yaml role
+    import yaml
+    with open(os.path.join(outdir, 'input.yaml'), 'w') as f:
+        yaml.safe_dump(cfg, f, sort_keys=False)
+
+    t0 = time.time()
+    mres = find_map(bundle, params_block, n_starts=args.starts,
+                    adam_steps=args.adam_steps, seed=args.seed,
+                    device=args.device)
+    t_map = time.time() - t0
+
+    t0 = time.time()
+    sres = run_smc(bundle, params_block, n_particles=args.particles,
+                   n_moves=args.moves, seed=args.seed,
+                   output=os.path.join(outdir, 'chains'), device=args.device)
+    t_smc = time.time() - t0
+
+    ndata, ndof, p_val, derived = _map_report_stats(bundle, mres)
+
+    # Bayesian model adequacy from the SMC particles' recorded chi2 column
+    # (sampling/gof.py; analytic replicated-T tail, no extra device work)
+    from .sampling.gof import posterior_predictive_pvalue
+    ppp = posterior_predictive_pvalue(sres.aux[:, 0], ndata,
+                                      bundle.fit_opts.form,
+                                      bundle.fit_opts.nmocks)
+
+    names = [p.name for p in sres.space.sampled]
+    part = sres.particles
+    lo68, med, hi68 = np.quantile(part, [0.1585, 0.5, 0.8415], axis=0)
+    mean, std = part.mean(axis=0), part.std(axis=0)
+
+    lines = [
+        f'# victor_tpu_torch analysis: {os.path.basename(args.config)}',
+        '',
+        f'Generated by `python -m victor_tpu_torch analyze` on '
+        f'{time.strftime("%Y-%m-%d %H:%M:%S")}.',
+        '',
+        '## Best fit',
+        '',
+        f'- chi2 = {mres.chi2:.4f} with ndof = {ndof} '
+        f'(p = {p_val:.4f}); |grad| = {mres.grad_norm:.2e}; '
+        f'{mres.n_converged}/{mres.n_starts} starts converged '
+        f'({t_map:.1f} s)',
+        '',
+        '## Goodness of fit',
+        '',
+        f'- best-fit tail probability p = {p_val:.4f} '
+        f'(chi2 {mres.chi2:.2f} / ndof {ndof}, '
+        f'{bundle.fit_opts.form} form)',
+        f'- posterior-predictive p = {ppp:.4f} '
+        '(Gelman-Meng-Stern; near 0 = model cannot reproduce the data, '
+        'near 1 = overdispersed/overestimated covariance)',
+        '',
+        '## Posterior (tempered SMC, '
+        f'{len(part)} particles, {len(sres.betas) - 1} stages, '
+        f'{t_smc:.1f} s)',
+        '',
+        f'log-evidence: **log Z = {sres.logz:.3f} +/- {sres.logz_se:.3f}** '
+        '(se covers the measured seed-to-seed scatter; CLT se '
+        f'{sres.logz_se_clt:.3f}; Laplace cross-check at the MAP: '
+        f'{mres.log_evidence_laplace:.3f})',
+        '',
+        '| parameter | MAP | sigma(Laplace) | posterior mean +/- std '
+        '| median | central 68% |',
+        '|---|---|---|---|---|---|',
+    ]
+    for i, n in enumerate(names):
+        lines.append(
+            f'| {n} | {mres.params[n]:.6g} | {mres.std[n]:.3g} '
+            f'| {mean[i]:.6g} +/- {std[i]:.3g} | {med[i]:.6g} '
+            f'| [{lo68[i]:.6g}, {hi68[i]:.6g}] |')
+    if derived:
+        lines += ['', '## Derived parameters (at the MAP)', '']
+        lines += [f'- {k} = {v:.6g}' for k, v in derived.items()]
+    lines += [
+        '',
+        '## Notes',
+        '',
+        '- Quote the central 68% credible intervals: their coverage is '
+        'measured nominal for every parameter, including beta, whose '
+        'grid-scale likelihood structure breaks the quadratic Laplace '
+        'sigma (BASELINE.md round 3, tools/coverage_test.py --method '
+        'smc/sbc).',
+        f'- GetDist chains: {outdir}/chains.*.txt '
+        f'(quick look: python tools/plot_chains.py {outdir}/chains)',
+    ]
+    report = os.path.join(outdir, 'report.md')
+    with open(report, 'w') as f:
+        f.write('\n'.join(lines) + '\n')
+
+    print(json.dumps(_json_sanitize({
+        'report': report,
+        'figures': [],
+        'chi2': round(mres.chi2, 4), 'ndof': ndof, 'p_value': round(p_val, 4),
+        'posterior_predictive_p': round(ppp, 4),
+        'log_evidence': round(sres.logz, 3),
+        'log_evidence_se': round(sres.logz_se, 3),
+        'log_evidence_laplace': round(mres.log_evidence_laplace, 3),
+        'posterior': {n: {'mean': round(float(mean[i]), 6),
+                          'std': round(float(std[i]), 6),
+                          'central_68': [round(float(lo68[i]), 6),
+                                         round(float(hi68[i]), 6)]}
+                      for i, n in enumerate(names)},
+        'elapsed_s': {'map': round(t_map, 2), 'smc': round(t_smc, 2)},
+    }), indent=2))
+
+
+def cmd_post(args):
+    """Importance-reweight stored chains under a modified config — the
+    `cobaya post` role, at batched-likelihood throughput (sampling/post.py)."""
+    import numpy as np
+
+    from .sampling.chains import read_getdist
+    from .sampling.post import _weighted_moments, reweight
+    from .sampling.priors import ParamSpace
+
+    cfg_old = _load(args.config)
+    if not _has_data(cfg_old):
+        sys.exit('post requires a data: block (data vector + covariance)')
+    if not args.new and not args.set:
+        sys.exit('post needs a modified target: --new <config.yaml> and/or '
+                 '--set dotted.key=value')
+    cfg_new = _apply_set(_load(args.new) if args.new else cfg_old, args.set)
+    if not _has_data(cfg_new):
+        sys.exit('the new config must keep a data: block')
+    params_old = cfg_old.get('params')
+    if not params_old:
+        sys.exit('config must contain a params: block')
+
+    space = ParamSpace(params_old)
+    names, w, _mlnp, samples = read_getdist(args.chains)
+    if names[:space.ndim] != space.names:
+        sys.exit(f'chain parameters {names[:space.ndim]} do not match the '
+                 f'config params block {space.names}')
+    theta = samples[:, :space.ndim]
+
+    t0 = time.time()
+    res = reweight(_build_bundle(cfg_old, args.device),
+                   _build_bundle(cfg_new, args.device),
+                   params_old, theta, weights=w,
+                   params_block_new=cfg_new.get('params'),
+                   chunk=args.chunk, output=args.output, device=args.device)
+    out = {
+        'n_particles': res.n,
+        'delta_logz': round(res.delta_logz, 4),
+        'delta_logz_se': round(res.delta_logz_se, 4),
+        'ess': round(res.ess, 1),
+        'efficiency': round(res.efficiency, 4),
+        'params_old': {k: {kk: round(vv, 6) for kk, vv in v.items()}
+                       for k, v in _weighted_moments(theta, np.asarray(w),
+                                                     space).items()},
+        'params_new': {k: {kk: round(vv, 6) for kk, vv in v.items()}
+                       for k, v in res.summary().items()},
+        'elapsed_s': round(time.time() - t0, 2),
+    }
+    if args.output:
+        out['output'] = args.output
+    print(json.dumps(_json_sanitize(out), indent=2))
+
+
+def cmd_tension(args):
+    """Concordance/tension between two datasets: evidence ratio ln R (three
+    tempered-SMC evidences: A, B, independent product AB at shared params)
+    and the Gaussian parameter-shift n-sigma (sampling/tension.py)."""
+    from .sampling.tension import run_tension
+
+    cfg_a = _apply_set(_load(args.config), args.set)
+    cfg_b = _apply_set(_load(args.config_b), args.set)
+    for label, cfg in (('first', cfg_a), ('second', cfg_b)):
+        if not _has_data(cfg):
+            sys.exit(f'tension requires a data: block in the {label} config')
+    params_block = cfg_a.get('params')
+    if not params_block:
+        sys.exit('the first config must contain a params: block '
+                 '(the shared prior of all three evidences)')
+    if cfg_b.get('params') not in (None, params_block):
+        sys.exit('the two configs must share ONE params: block — the '
+                 'evidence ratio is only meaningful under a common prior. '
+                 'Drop params: from the second config or make them '
+                 'identical.')
+
+    res = run_tension(_build_bundle(cfg_a, args.device),
+                      _build_bundle(cfg_b, args.device),
+                      params_block, n_particles=args.particles,
+                      n_moves=args.moves, seed=args.seed, device=args.device)
+    print(json.dumps(_json_sanitize({
+        'log_evidence_ratio': round(res.logr, 3),
+        'log_evidence_ratio_se': round(res.logr_se, 3),
+        'verdict': 'concordance' if res.logr > 0 else 'tension',
+        'log_evidence': {'a': round(res.logz_a, 3),
+                         'b': round(res.logz_b, 3),
+                         'joint': round(res.logz_ab, 3)},
+        'parameter_shift': {'chi2': round(res.shift_chi2, 3),
+                            'ndof': res.shift_ndof,
+                            'p_value': round(res.shift_p, 5),
+                            'n_sigma': round(res.shift_nsigma, 2)},
+        'shared_params': res.names,
+        'posterior_a': res.summary_a,
+        'posterior_b': res.summary_b,
+        'posterior_joint': res.summary_ab,
+        'elapsed_s': round(res.elapsed_s, 2),
+        'note': 'ln R is prior-volume dependent (quote the shared prior); '
+                'the parameter shift assumes near-Gaussian posteriors',
+    }), indent=2))
+
+
+def cmd_compare(args):
+    """Evidence-based model comparison on the SAME data: one tempered-SMC
+    evidence per config, Delta ln Z with quadrature-summed errors and the
+    Jeffreys-scale reading (the two configs should differ in the model:
+    block / options; comparing different datasets is `tension`'s job).
+
+    JSON keys the two runs 'a'/'b' (each with its config path and applied
+    overrides): the headline usage passes the SAME path twice (`compare cfg
+    cfg --set-b model.rsd_model=kaiser`), so path-keyed output would
+    collapse the entries and 'favored' could not identify the winner."""
+    import numpy as np
+
+    from .sampling import run_smc
+
+    results = []
+    # --set applies to BOTH runs (shared analysis choices, matching
+    # tension's semantics); --set-a/--set-b are per-run variants
+    for i, (label, path, sets) in enumerate(
+            (('a', args.config, args.set_a), ('b', args.config_b,
+                                              args.set_b))):
+        cfg = _apply_set(_apply_set(_load(path), args.set), sets)
+        if not _has_data(cfg):
+            sys.exit(f'compare requires a data: block in {path}')
+        params_block = cfg.get('params')
+        if not params_block:
+            sys.exit(f'{path} must contain a params: block')
+        res = run_smc(_build_bundle(cfg, args.device), params_block,
+                      n_particles=args.particles, n_moves=args.moves,
+                      seed=args.seed + i, device=args.device)
+        results.append((label, path, sets, res))
+
+    (_, pa, sa, ra), (_, pb, sb, rb) = results
+    dlnz = ra.logz - rb.logz
+    se = float(np.sqrt(ra.logz_se ** 2 + rb.logz_se ** 2))
+    a = abs(dlnz)
+    scale = ('inconclusive (|Delta ln Z| < 1)' if a < 1 else
+             'positive (1 <= |Delta ln Z| < 2.5)' if a < 2.5 else
+             'strong (2.5 <= |Delta ln Z| < 5)' if a < 5 else
+             'decisive (|Delta ln Z| >= 5)')
+    print(json.dumps(_json_sanitize({
+        'delta_log_evidence': round(dlnz, 3),
+        'delta_log_evidence_se': round(se, 3),
+        'favored': 'a' if dlnz > 0 else 'b',
+        'jeffreys': scale,
+        'a': {'config': pa, 'set': (args.set or []) + (sa or []),
+              'log_evidence': round(ra.logz, 3), 'posterior': ra.summary()},
+        'b': {'config': pb, 'set': (args.set or []) + (sb or []),
+              'log_evidence': round(rb.logz, 3), 'posterior': rb.summary()},
+        'elapsed_s': round(ra.elapsed_s + rb.elapsed_s, 2),
+    }), indent=2))
+
+
 def cmd_forecast(args):
     """Gaussian Fisher-matrix forecast of the expected parameter
     constraints at a fiducial point: sigmas and correlations from the exact
@@ -669,7 +1027,21 @@ def main(argv=None):
                          'the reference/cobaya algorithm class); hmc and '
                          'nuts (gradients through the likelihood); ensemble '
                          '(differential-evolution move) exits nonzero if '
-                         'unconverged; smc and ns are not ported yet')
+                         'unconverged; smc (tempered SMC) and ns (nested '
+                         'sampling) also estimate the evidence')
+    pr.add_argument('--particles', type=int, default=2048,
+                    help='SMC particle count (sampler=smc)')
+    pr.add_argument('--moves', type=int, default=5,
+                    help='SMC mutation steps per stage (sampler=smc)')
+    pr.add_argument('--live', type=int, default=1024,
+                    help='nested-sampling live points (sampler=ns)')
+    pr.add_argument('--ns-steps', type=int, default=24,
+                    help='replacement-chain Metropolis moves (sampler=ns)')
+    pr.add_argument('--ns-batch', type=int, default=None,
+                    help='dead points replaced per NS iteration '
+                         '(default n_live // 4; sampler=ns)')
+    pr.add_argument('--dlogz', type=float, default=0.01,
+                    help='evidence termination tolerance (sampler=ns)')
     pr.add_argument('--max-depth', type=int, default=None,
                     help='NUTS maximum tree depth (sampler=nuts; default 6 '
                          '— the measured speed/robustness point with the '
@@ -737,6 +1109,82 @@ def main(argv=None):
     ps.add_argument('--seed', type=int, default=0)
     ps.add_argument('--device', default='cuda', help=device_help)
     ps.set_defaults(fn=cmd_scan)
+
+    pa = sub.add_parser('analyze', help='full analysis in one command: '
+                        'MAP + Laplace, SMC posterior + evidence, report')
+    pa.add_argument('config')
+    pa.add_argument('--set', action='append', metavar='dotted.key=value',
+                    help=set_help)
+    pa.add_argument('--output', default=None,
+                    help='output directory (default <config>_analysis/)')
+    pa.add_argument('--starts', type=int, default=16,
+                    help='MAP multi-start count')
+    pa.add_argument('--adam-steps', type=int, default=250)
+    pa.add_argument('--particles', type=int, default=4096,
+                    help='SMC particle count')
+    pa.add_argument('--moves', type=int, default=8,
+                    help='SMC mutation moves per stage')
+    pa.add_argument('--seed', type=int, default=0)
+    pa.add_argument('--no-plots', action='store_true',
+                    help='skip the corner / model-vs-data figures (not '
+                         'ported yet: required)')
+    pa.add_argument('--device', default='cuda', help=device_help)
+    pa.set_defaults(fn=cmd_analyze)
+
+    pp = sub.add_parser('post', help='importance-reweight stored chains '
+                        'under a modified config (cobaya-post equivalent)')
+    pp.add_argument('config', help='the config the chains were sampled with')
+    pp.add_argument('--chains', required=True,
+                    help='GetDist chain root written by run (e.g. chains/out)')
+    pp.add_argument('--new', default=None,
+                    help='replacement config for the new target')
+    pp.add_argument('--set', action='append', metavar='dotted.key=value',
+                    help='override applied on top of --new (or the original '
+                         'config), e.g. --set data.likelihood.form=gaussian')
+    pp.add_argument('--chunk', type=int, default=64)
+    pp.add_argument('--output', default=None,
+                    help='root for the reweighted GetDist chains '
+                         '(fractional weight column)')
+    pp.add_argument('--device', default='cuda', help=device_help)
+    pp.set_defaults(fn=cmd_post)
+
+    pt = sub.add_parser('tension', help='concordance/tension between two '
+                        'datasets: evidence ratio ln R + parameter shift')
+    pt.add_argument('config', help='first dataset (its params: block is '
+                    'the shared prior)')
+    pt.add_argument('config_b', help='second dataset')
+    pt.add_argument('--set', action='append', metavar='dotted.key=value',
+                    help='config override applied to BOTH configs (shared '
+                         'analysis choices, e.g. data.likelihood.form)')
+    pt.add_argument('--particles', type=int, default=4096,
+                    help='SMC particle count per run')
+    pt.add_argument('--moves', type=int, default=8,
+                    help='SMC mutation moves per stage')
+    pt.add_argument('--seed', type=int, default=0)
+    pt.add_argument('--device', default='cuda', help=device_help)
+    pt.set_defaults(fn=cmd_tension)
+
+    pc = sub.add_parser('compare', help='evidence-based model comparison on '
+                        'the same data: Delta ln Z between two configs')
+    pc.add_argument('config', help='first model config')
+    pc.add_argument('config_b', help='second model config (same data)')
+    pc.add_argument('--set', action='append', metavar='dotted.key=value',
+                    help='override applied to BOTH configs (shared analysis '
+                         'choices — same semantics as tension --set)')
+    pc.add_argument('--set-a', action='append', metavar='dotted.key=value',
+                    help='override applied to the FIRST config only')
+    pc.add_argument('--set-b', action='append', metavar='dotted.key=value',
+                    help='override applied to the SECOND config only (so '
+                         'one base config can be compared against a '
+                         'variant: compare cfg.yaml cfg.yaml --set-b '
+                         'model.rsd_model=kaiser)')
+    pc.add_argument('--particles', type=int, default=4096,
+                    help='SMC particle count per run')
+    pc.add_argument('--moves', type=int, default=8,
+                    help='SMC mutation moves per stage')
+    pc.add_argument('--seed', type=int, default=0)
+    pc.add_argument('--device', default='cuda', help=device_help)
+    pc.set_defaults(fn=cmd_compare)
 
     pfc = sub.add_parser('forecast', help='Fisher forecast of expected '
                          'constraints at a fiducial point (no sampling)')

@@ -242,6 +242,14 @@ def pchip_eval(x, coeffs, q):
     return ((c3 * t + c2) * t + c1) * t + c0
 
 
+def _build_device(device) -> torch.device:
+    """The device check of the public `build` methods,
+    io/tables.py::_target_device: a CUDA device must exist; no quiet
+    fallback to the CPU."""
+    from ..io.tables import _target_device
+    return _target_device(device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Spline1D:
     """A cubic spline with fixed knots whose values may change at run time.
@@ -255,9 +263,10 @@ class Spline1D:
     clamp: bool = True
 
     @classmethod
-    def build(cls, x, clamp: bool = True, device='cpu',
+    def build(cls, x, clamp: bool = True, device='cuda',
               dtype=torch.float64) -> 'Spline1D':
-        return cls.build_host(x, clamp).to(device, dtype)
+        """The spline on `device`: the card unless 'cpu' is asked for."""
+        return cls.build_host(x, clamp).to(_build_device(device), dtype)
 
     @classmethod
     def build_host(cls, x, clamp: bool = True) -> 'Spline1D':
@@ -292,7 +301,9 @@ class PchipTable:
     coeffs: torch.Tensor     # (n-1, 4, ...) ascending powers
 
     @classmethod
-    def build(cls, x, y, device='cpu', dtype=torch.float64) -> 'PchipTable':
+    def build(cls, x, y, device='cuda', dtype=torch.float64) -> 'PchipTable':
+        """The table on `device`: the card unless 'cpu' is asked for."""
+        device = _build_device(device)
         return cls(x=_tensor(x, device, dtype),
                    coeffs=_tensor(pchip_coeffs(x, y), device, dtype))
 
@@ -314,8 +325,9 @@ class Bicubic2D:
     y_const: bool = False
 
     @classmethod
-    def build(cls, x, y, z, device='cpu', dtype=torch.float64) -> 'Bicubic2D':
-        return cls.build_host(x, y, z).to(device, dtype)
+    def build(cls, x, y, z, device='cuda', dtype=torch.float64) -> 'Bicubic2D':
+        """The surface on `device`: the card unless 'cpu' is asked for."""
+        return cls.build_host(x, y, z).to(_build_device(device), dtype)
 
     @classmethod
     def build_host(cls, x, y, z) -> 'Bicubic2D':

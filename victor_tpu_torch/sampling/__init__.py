@@ -1,6 +1,10 @@
 from .priors import ParamSpace, SampledParam, DerivedParam
 from .ensemble import EnsembleState, init_state, step, run, make_logpost
 from .runner import run_mcmc, run_hmc_mcmc, make_posterior, MCMCResult
+from .smc import run_smc, SMCResult
+from .nested import run_nested, NestedResult
+from .post import reweight, PostResult
+from .tension import run_tension, parameter_shift, TensionResult
 from .targets import ProductTarget
 from . import hmc
 from . import mh
@@ -16,7 +20,9 @@ __all__ = [
     'EnsembleState', 'init_state', 'step', 'run', 'make_logpost',
     'run_mcmc', 'run_hmc_mcmc', 'make_posterior', 'MCMCResult', 'hmc', 'mh',
     'nuts',
-    'ProductTarget',
+    'run_smc', 'SMCResult', 'run_nested', 'NestedResult',
+    'reweight', 'PostResult',
+    'run_tension', 'parameter_shift', 'TensionResult', 'ProductTarget',
     'save_checkpoint', 'load_checkpoint', 'export_getdist',
     'read_getdist', 'read_covmat', 'save_hmc_checkpoint',
     'load_hmc_checkpoint',

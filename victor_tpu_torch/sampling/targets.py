@@ -3,7 +3,11 @@
 The port of `victor_tpu/sampling/targets.py`. The samplers accept the same
 target kinds: a single-dataset CCFModelBundle, a multi-quantile JointBundle,
 a ProductTarget of independent members, or a callable params -> (lnlike,
-aux). `resolve_target` is the one place that dispatches them.
+aux). `resolve_target` is the one place that dispatches them. The particle
+samplers (smc.py, nested.py) share two more pieces: `make_unbounded_wrappers`
+(the batched likelihood and prior over the unbounded reparameterisation) and
+`guarded_cholesky` (the jittered proposal factor with its diagonal
+fallback).
 
 Every function here works over a leading batch axis: params are dicts of
 (B,) tensors and a callable target takes such a dict and returns (lnlike,
@@ -15,7 +19,10 @@ to cache.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional, Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +84,7 @@ def resolve_target(bundle, opts_kw: Optional[Dict], fit_kw: Optional[Dict],
             return lnl, aux
         return tables, loglike
 
-    if callable(bundle) and not hasattr(bundle, 'tables') \
-            and not isinstance(bundle, JointBundle):
+    if is_callable_target(bundle):
         user_fn = bundle
 
         def loglike(tbl, params):
@@ -103,3 +109,58 @@ def resolve_target(bundle, opts_kw: Optional[Dict], fit_kw: Optional[Dict],
         return log_likelihood(tbl, spec, opts, fit, params)
     return bundle.tables, loglike
 
+
+
+def is_callable_target(bundle) -> bool:
+    """Whether `bundle` is a bare callable params -> (lnlike, aux), whose aux
+    is an arbitrary statistic rather than the chi2 column of a bundle
+    target (the chain files name it `aux_0`, not `chi2_ccf_correct`)."""
+    from ..likelihood.multiquantile import JointBundle
+    return callable(bundle) and not hasattr(bundle, 'tables') \
+        and not isinstance(bundle, (JointBundle, ProductTarget))
+
+
+def make_unbounded_wrappers(space, loglike, chunk: Optional[int]):
+    """(lnprior, batched_lnlike) over the unbounded reparameterisation
+    y = space.to_unbounded(theta), for the particle samplers (smc.py,
+    nested.py).
+
+    lnprior(y (N, ndim)) -> (N,) includes the reparameterisation's
+    log-Jacobian; batched_lnlike(tbl, y (N, ndim)) -> (lnl (N,), aux (N, 1))
+    maps non-finite lnL to -inf and runs the batch in chunks of `chunk`
+    rows (likelihood/batched.py::chunked) to bound peak memory."""
+    from ..likelihood.batched import chunked
+
+    def lnprior(y):
+        return space.log_prior(space.to_bounded(y)) + space.log_jacobian(y)
+
+    def batched_lnlike(tbl, ys):
+        def run(y):
+            lnl, aux = loglike(tbl, space.full_params(space.to_bounded(y)))
+            return (torch.where(torch.isfinite(lnl), lnl, -math.inf),
+                    aux.reshape(y.shape[0], 1))
+        return chunked(run, chunk)(ys)
+
+    return lnprior, batched_lnlike
+
+
+def guarded_cholesky(w: torch.Tensor, y: torch.Tensor, scale=1.0):
+    """Proposal Cholesky of the w-weighted covariance of y (N, d), times the
+    Haario 2.38/sqrt(d) factor and `scale`.
+
+    The jitter scales with trace(C)/d (a fixed 1e-10 is below f32 rounding
+    on late-stage near-degenerate particle clouds, where the Cholesky can
+    NaN and silently freeze every mutation), and a diagonal fallback covers
+    a factor that is not finite; the choice is a select on the device, with
+    no read to the host."""
+    from .hmc import cholesky_or_nan
+    d = y.shape[1]
+    mu = torch.einsum('i,ij->j', w, y)
+    yc = y - mu
+    C = torch.einsum('i,ij,ik->jk', w, yc, yc)
+    jitter = torch.clamp(1e-6 * torch.trace(C) / d, min=1e-30)
+    C = C + jitter * torch.eye(d, dtype=C.dtype, device=C.device)
+    chol = cholesky_or_nan(C)
+    chol = torch.where(torch.isfinite(chol).all(), chol,
+                       torch.diag(torch.sqrt(torch.diag(C))))
+    return chol * (2.38 / math.sqrt(d)) * scale
