@@ -146,9 +146,11 @@ result line is printed):
       |Delta lnZ| within 3 combined se, and the dispersion_final kernel
       launched and held against its plain version on the inputs of one of
       the run's launches, timed;
-   g. `analyze configs/boss_sampling_config.yaml --no-plots`: the MAP's chi2
-      within 1e-6 of FIT_GOLDENS, logZ, every output file, the chains and
-      covmat read back;
+   g. `analyze configs/boss_sampling_config.yaml`: the MAP's chi2 within
+      1e-6 of FIT_GOLDENS, logZ, every output file, the chains and covmat
+      read back, and where matplotlib is installed corner.png and
+      multipoles.png drawn (Agg) and listed in the report (without it
+      `--no-plots`, and a line saying so);
    h. (information) the wall time and evals/s of each run, and the
       kernels' device time of one SMC stage and one NS iteration under
       torch.profiler against wall time.
@@ -158,10 +160,39 @@ result line is printed):
    process after phase 13, with f.
    Cut for time: e, f and g run 1024 particles x 4 moves (the commands'
    default is 4096 x 8: a run of 7 stages then takes ~12 s instead of
-   ~80 s) and g's MAP 8 starts (16); a and c run the commands' defaults.
+   ~80 s) and g's MAP 8 starts (16); a and c run the commands' defaults;
+15. the class surface on the card, f64, adopting phase 5's and phase 9's
+   bundles (`_bundle=`), against victor_tpu's values on the CPU
+   (API_GOLDENS, within 1e-9 of each group's largest value):
+   a. `CCFFit` on configs/boss_config.yaml: log_likelihood at GOLDEN and
+      DISPLACED (chi2 65.011778, lnL 284.764389 within 1e-8), chi_squared
+      and its covariance (diagonal and row sums within 1e-12),
+      theory_multipoles (0, 2) and (1, 3) (odd poles ~0), theory_xi at a
+      scalar and at (3, 1) x (1, 5), the node values of theory_xi_2D and
+      xi_2D_from_multipoles, the interpolated real and redshift multipoles,
+      the data vector, correlation_matrix, diagonal_errors, delta_profiles
+      and velocity_terms; each theory call exactly 3 ppoly_eval launches;
+   b. CCFFit.log_likelihood with DISP_EXACT and dispersion_final='fused'
+      as keyword overrides at GOLDEN and DISPLACED within 1e-9 relative of
+      the batched path, one dispersion_final launch each, the kernel held
+      against its plain version on the inputs of the first;
+   c. the cobaya adapter through a minimal stand-in of cobaya's Likelihood
+      on the BOSS and the ESM config: logp and derived chi2 equal CCFFit's,
+      the ESM derived fsigma8, get_can_provide_params for both;
+   d. ExcursionSetProfile on the card: power, the enclosed and the local
+      profile, density_evolution both ways after set_normalisation(0.81)
+      and (0.6, z=0.57);
+   e. BackgroundCosmology's growth_factor, sigma8z and fsigma8 of a card
+      tensor against the host floats (1e-12) and d growth / dz by autograd;
+   f. (information) the largest lookup of one log_likelihood (B = 1)
+      device-only against its bound, the wrapper's host us, the wall ms of
+      one log_likelihood and one theory_multipoles call: the class-surface
+      rows of the kernels line. `--class-surface` runs phases 2 and 15
+      alone.
 
-The last two lines are a JSON summary of the kernels (device-only `ms`,
-`host_us`; the sampler row's `ms` is its L2-cold reading, beside `warm_ms`;
+Before them the script prints its own wall time. The last two lines are a
+JSON summary of the kernels (device-only `ms`, `host_us`; the sampler
+row's `ms` is its L2-cold reading, beside `warm_ms`;
 a second-order row's `ms` is one composed call of several launches, its
 `calls` the composed calls at its lookup and its `launches` their kernel
 launches; a particle-sampler row's `launches` are its lookup's in 14a's SMC
@@ -540,6 +571,209 @@ ESM_HESS_GOLDENS = [[232.27223452549725, 309.0610431653943,
                      0.012553850458271024, 11004.23379071277]]
 # Phase 13g: the ESM fit's starts, cut from the CLI's 32 to fit the time
 ESM_FIT_STARTS = 8
+# Phase 15: the class surface's inputs. theory_xi at API_S (3, 1) against
+# API_MU (1, 5) and at the scalar API_XI_POINT; theory_xi_2D and
+# xi_2D_from_multipoles (rmax 85: a 50 x 50 grid) at the (s_perp, s_par)
+# nodes API_NODES; the profiles at API_R; ExcursionSetProfile(**ESP_ARGS)'s
+# P(k, z) at API_K and its profiles (Lagrangian grid linspace(1, 120, 60)) at
+# ESP_PROFILE = (z, b10, b01, Rp, Rx), density_evolution after each
+# set_normalisation(sigma8, z) of ESP_NORMS; BackgroundCosmology's growth at
+# COSMO_Z. API_GOLDENS are victor_tpu's values on the CPU in f64, recomputed
+# and compared with these literals by
+# tests/test_torch_api.py::test_chip_smoke_api_goldens_match_victor_tpu.
+API_BETA = 0.37
+API_S = [10.0, 25.0, 40.0]
+API_MU = [0.0, 0.3, 0.6, 0.9, 1.0]
+API_XI_POINT = [30.0, 0.5]
+API_NODES = [[0, 0], [7, 31], [23, 12], [49, 49]]
+API_R = [1.0, 8.0, 20.0, 35.0, 50.0, 70.0, 95.0, 120.0]
+API_K = [0.001, 0.003, 0.01, 0.03, 0.1, 0.3, 1.0, 2.0]
+ESP_ARGS = {'h': 0.675, 'omega_m': 0.31, 'omega_b': 0.048, 'z': 0.57}
+ESP_PROFILE = [0.57, -1.544, -4.228, 7.973, 0.467]
+ESP_NORMS = [[0.81, 0.0], [0.6, 0.57]]
+COSMO_Z = 0.57
+API_GOLDENS = {
+    'loglike_golden': [284.76438934895, 65.011777580541],
+    'loglike_displaced': [269.08489176599, 99.200997608386],
+    'cov_diag': [
+        0.0002160237638793, 5.436705285142e-05, 4.0452930008953e-05,
+        4.3510113327736e-05, 5.3319463560486e-05, 4.7142409586609e-05,
+        4.5569074245635e-05, 4.4777957019377e-05, 4.4152686664616e-05,
+        4.0605424284037e-05, 3.5943803141992e-05, 3.0790261781108e-05,
+        2.550551256849e-05, 2.0419714157877e-05, 1.6837979258829e-05,
+        1.5429492271595e-05, 1.4475025984773e-05, 1.1909766546098e-05,
+        1.034753304379e-05, 9.8203453005573e-06, 9.1355130242365e-06,
+        8.3660946963419e-06, 7.0270697213725e-06, 6.5632664319757e-06,
+        6.139901713829e-06, 6.2406212512094e-06, 5.4365185370604e-06,
+        4.7068565286521e-06, 4.5782174942887e-06, 4.3504424393897e-06,
+        0.00074401947375533, 0.00012339552845679, 5.7264555241328e-05,
+        5.8389494397898e-05, 8.1409820716942e-05, 0.00012342383781289,
+        0.00015379554340825, 0.00016266452526203, 0.00016499037287682,
+        0.00015901565212795, 0.0001521010770554, 0.00013737314293131,
+        0.00012339051563625, 0.00011049251948526, 9.1243883622676e-05,
+        7.5827725227156e-05, 7.3842703404049e-05, 6.8203582166802e-05,
+        5.8757006953401e-05, 5.1078302741939e-05, 4.8702730695161e-05,
+        4.4431325313458e-05, 4.1094652711992e-05, 3.8507916483206e-05,
+        3.2120980482082e-05, 3.051482046121e-05, 2.8745123393826e-05,
+        2.5670399348021e-05, 2.268922223956e-05, 2.2010677998524e-05],
+    'cov_rowsum': [
+        0.0003280306809921, 0.00013851266380373, 0.00012848439136585,
+        0.00011624351453118, 0.00013997624223647, 0.00014894086924766,
+        0.0001431256629515, 0.0001036119847954, 0.00011156560461,
+        8.5940214717651e-05, 7.0963180742302e-05, 8.0765509741934e-05,
+        5.9870284481166e-05, 5.1265043093096e-05, 4.7681728619361e-05,
+        1.5178655258042e-05, 4.4186415906224e-06, 2.5436529117984e-05,
+        1.6062794495234e-05, 2.3709110509046e-05, 5.2455042350832e-06,
+        2.9774856470805e-05, 2.0435901553854e-05, 2.9625059936284e-05,
+        1.9894402931436e-05, 1.6752659802208e-05, 1.1995701352953e-05,
+        1.3077282979823e-05, 9.9308886484599e-06, 1.333001537911e-05,
+        0.00072670346012929, 0.00013462990864676, 9.9000663814934e-05,
+        5.7552571257062e-05, 0.00010262210501173, 0.00021239588918134,
+        0.00025434103959987, 0.00034692358642691, 0.00037805573040745,
+        0.00044012514166122, 0.00043560137163617, 0.00037241456158145,
+        0.00039853574662657, 0.00037256686682165, 0.00032259077020388,
+        0.0002453437631729, 0.00024216847368479, 0.00021728500798345,
+        0.00025466354899197, 0.00021597566094087, 0.00018516202101237,
+        0.00015522590821555, 0.00012665648213339, 0.00011504183532897,
+        9.1076180795765e-05, 9.2379723568194e-05, 9.2051321558945e-05,
+        7.1311254699153e-05, 4.7454143732365e-05, 4.363657245424e-05],
+    'mult': [
+       [-0.99984381256456, -0.99914695973197, -0.99554483383605,
+        -0.95578542848263, -0.80738582115243, -0.60573181395313,
+        -0.46270920345182, -0.34201920385276, -0.22081093383689,
+        -0.11553171266887, -0.037619783654853, 0.012656421199107,
+        0.040484844625409, 0.05288135948879, 0.055828450300869,
+        0.053080338200195, 0.04745346488858, 0.04083397509085,
+        0.033980757313808, 0.027384939355168, 0.02135112108347,
+        0.016190659110773, 0.011510230580677, 0.0076195710521129,
+        0.0048860427773929, 0.0026907614801714, 0.0012067589181233,
+        0.00071649842049139, 0.00073477755547721, 0.001067566118304],
+       [-3.4622856856566e-05, 9.1032816467173e-05, 0.0030446584678984,
+        0.0032497061944537, -0.032701955546416, -0.056790806494971,
+        -0.020595514723314, -0.0049729321594376, -0.0019983265297159,
+        0.0074700146082247, 0.020138425178605, 0.029804552552038,
+        0.034230101536476, 0.034217550531591, 0.031338572040692,
+        0.027036104261398, 0.022173385364635, 0.017607755109683,
+        0.013741869909244, 0.010116957209466, 0.0073950463177284,
+        0.0056127755443268, 0.0043245767471273, 0.0033648105762659,
+        0.0026196725820878, 0.0017495819772184, 0.0008849060656336,
+        0.00032075180326996, -0.00012186470906518, -0.00032857818748919]],
+    'xi_point': -0.34126721460528,
+    'xi_grid': [
+       [-0.99720376663339, -0.99667025655548, -0.99531697870384,
+        -0.99340331815352, -0.99268656298783],
+       [-0.48166408472899, -0.48301696783195, -0.4914712611578,
+        -0.51700698568284, -0.53024612977351],
+       [-0.080080369283877, -0.07804856206735, -0.072183095060326,
+        -0.063144974307034, -0.059491228394103]],
+    'theory_xi_2D': [
+        0.023663748099859, -0.49133608442455, 0.064564619067041,
+        0.0012066187938805],
+    'xi_2D_from_multipoles': [
+        0.023636026835269, -0.49107793814084, 0.064578810319465,
+        -0.090788650629828],
+    'real_mult': [
+       [-1.0000384459517, -0.99924908105319, -0.99755251473949,
+        -0.96233583233811, -0.78886560622701, -0.55633264368146,
+        -0.42678494824759, -0.31103033571283, -0.19014830701205,
+        -0.09063127100607, -0.021587530805071, 0.020258180636543,
+        0.041994694954488, 0.050561888685045, 0.051509485598304,
+        0.048050705518376, 0.042623409132152, 0.036573219678357,
+        0.030261356626573, 0.024623591774139, 0.019353328522967,
+        0.014523385841252, 0.010166032059559, 0.0065609444260249,
+        0.0038946753527793, 0.0020447723853867, 0.00099284463369899,
+        0.00067103906709664, 0.00094967200785236, 0.001474492315237],
+       [0.0078869598642841, 0.0013841491978823, -0.00089119648046126,
+        -0.00073578646516606, -0.0021862847397362, -0.006302078448614,
+        -0.0021765802279985, 0.0010327572358054, 0.001477619576813,
+        0.0023642510387889, 0.001195213280398, 8.1352524457285e-05,
+        -0.0015394580124546, -0.0024768849611772, -0.0029742865514759,
+        -0.0032532236494849, -0.0030751723915231, -0.0031356131413848,
+        -0.0031288212921893, -0.0028527845412145, -0.0020903851692564,
+        -0.0018407957323752, -0.0014213574602715, -0.0012194720226634,
+        -0.00096020920166189, -0.00091062898737875, -0.00079062080660936,
+        -0.00052705352706672, -0.00031476479964727, -0.00019731480713391]],
+    'datavector': [
+        -1.0151088782131, -1.0014025632057, -0.99641851812043,
+        -0.95769255462126, -0.81252716734117, -0.61251941363173,
+        -0.48033650157542, -0.35905938033352, -0.23467163318715,
+        -0.13017126534134, -0.042417667715013, 0.023401897946938,
+        0.047261785257027, 0.05276226340229, 0.058034234644395,
+        0.059040792717972, 0.051380022564252, 0.041275986072168,
+        0.036983837141555, 0.026482305475374, 0.025123773671863,
+        0.016689235305559, 0.011854348866137, 0.0099839568410993,
+        0.0055422686914744, 0.0017706589199589, 0.0010341747615201,
+        -0.00054848925103032, -0.0013830932375179, -0.0020902075577403,
+        -0.022962138667661, -0.0020137048040635, 0.01391689723067,
+        0.00077568750813388, -0.030844931522174, -0.073565017427001,
+        -0.045543306267506, -0.027450027468127, -0.014344124014858,
+        0.013983453912423, 0.016934868307587, 0.018207037168664,
+        0.01669565506729, 0.03856755340175, 0.022672830060036,
+        0.028701483534927, 0.023314888211087, 0.020402293362926,
+        0.017670386811566, 0.008253332542652, 0.0058613414893164,
+        0.0045406140006156, 0.0065630682449797, 0.0031175837792137,
+        0.0024099694043546, 0.0079390845548843, -0.0024418860006152,
+        -0.0073386330155557, -0.0019236188245549, 0.001849146924468],
+    'corr_rowsum': [
+        2.1955477382692, 2.5692467087607, 2.9030044937526, 2.8813132939632,
+        3.0299300040343, 3.3318510437882, 3.3404252845091, 2.7473407906756,
+        2.7936821128299, 1.8574050840141, 2.0158111317652, 2.1812070121214,
+        1.9408711046849, 2.0790956313938, 2.3673564837709, 1.6761431349588,
+        1.692917503353, 2.2358994168319, 2.0738111205043, 2.7566199840078,
+        2.4931373496591, 3.6014878550314, 3.18274649255, 3.8547717624921,
+        3.2927083780015, 3.0132493897987, 2.9678718641227, 2.9792355769103,
+        2.4282779588968, 2.4459783673197, 0.92614494673297, 0.79951943005652,
+        1.8279572274332, 0.91962681676903, 1.2884070546035, 1.6365811519297,
+        1.7307127650502, 2.1644249207674, 2.3989896111599, 2.4792893652641,
+        2.6188832543042, 2.255280958552, 2.7085539380824, 2.9367624770957,
+        2.9502751443468, 2.8309256743741, 3.1041151852741, 2.9929581485888,
+        4.1681847008105, 3.9948726855666, 3.9220059203345, 3.5578802772941,
+        3.4881487490608, 3.1970372780021, 3.2953073010874, 3.2646188600747,
+        3.1792901174884, 3.0034880409563, 2.2994930600254, 2.0039943467109],
+    'delta': [
+       [-0.45992896536601, -0.44647630667319, -0.28695206405959,
+        -0.075714262144099, 0.011248368849499, 0.017647072440833,
+        0.0024720243991047, 0.00014459802555968],
+       [-0.46000377985954, -0.45303428646866, -0.36670010402401,
+        -0.19192147797472, -0.077847728274253, -0.016264368709722,
+        -0.0015108982806426, -0.00064910211231697]],
+    'velocity': [
+       [10.04442532133, 79.17911640497, 160.17322400056, 146.72494777867,
+        85.020934656677, 24.868247332815, 3.1355386652512, 1.6730347310129],
+       [10.042905498038, 9.46583864908, 2.7840059404707, -3.4227832124458,
+        -4.1379277452137, -1.866910081595, -0.22799315082757,
+        -0.037831833417832]],
+    'esm_loglike': [275.44738917928, 85.028813344237],
+    'esm_fsigma8': 0.46992919616654,
+    'esp_fiducial': [0.81124949521789, 0.60340269575539],
+    'esp_power': [
+        2074.8584154135, 5511.2602700744, 11818.904127548, 10616.419946716,
+        3104.0321972956, 482.41292647917, 36.700656586662, 7.1788293923517],
+    'esp_enclosed': [
+        -0.46816273251311, -0.45026229276119, -0.36001417982956,
+        -0.18742482925291, -0.06637170530593, -0.016217667329583,
+        -0.005103232543801, -0.0029255723159548],
+    'esp_local': [
+        -0.46777958253524, -0.43825611971676, -0.29221625049102,
+        -0.05839752231328, 0.016248971834861, 0.0077821707576739,
+        -0.00079518257122929, 0.00031094842894761],
+    'esp_evolution': [
+       [-0.3139288862129, -0.30960060292451, -0.28236726090857,
+        -0.18088571141646, -0.067859474725137, -0.016382148740957,
+        -0.0050910252336274, -0.0029220961930621],
+       [-0.35661591197664, -0.34744788410668, -0.30077094524016,
+        -0.17830079947385, -0.059306232021209, -0.0098536434331071,
+        -0.0016453608478633, -0.0010820189412098],
+       [-0.31301744134084, -0.30864628647568, -0.28113375097291,
+        -0.17952791974392, -0.06727499083693, -0.016244345735818,
+        -0.005049253136109, -0.0028980658603534],
+       [-0.35535470118925, -0.34618345729741, -0.2993866405049,
+        -0.17696418786892, -0.058791831084671, -0.0097693332303816,
+        -0.0016318215900964, -0.0010730657026014]],
+    'cosmo': [
+        0.74379423261561, 0.60247332841864, 0.4703226828524,
+        -0.36919217670678],
+}
 
 
 def check(ok, what):
@@ -2767,7 +3001,7 @@ def evidence_child(tmp):
     post_check(bundle, tmp, os.path.join(tmp, 'chains', 'smc'))
     print('evidence: tension of the data with itself (14e)', flush=True)
     tension_s = tension_check(tmp)
-    print('evidence: analyze --no-plots (14g)', flush=True)
+    print('evidence: analyze (14g)', flush=True)
     analyze_s = analyze_check(tmp)
     order = [res.space.names.index(k) for k in NAMES]
     with open(os.path.join(tmp, 'evidence.json'), 'w') as f:
@@ -2964,21 +3198,32 @@ def compare_check(tmp):
     return launches, result, (ra.elapsed_s, rb.elapsed_s)
 
 
+def have_matplotlib():
+    import importlib.util
+    return importlib.util.find_spec('matplotlib') is not None
+
+
 def analyze_check(tmp):
-    """Phase 14g: `analyze configs/boss_sampling_config.yaml --no-plots`
-    (8 starts and 1024 particles x 4 moves: cut from 16 and 4096 x 8 for
-    time)."""
+    """Phase 14g: `analyze configs/boss_sampling_config.yaml` (8 starts and
+    1024 particles x 4 moves: cut from 16 and 4096 x 8 for time), with its
+    figures where matplotlib is installed (Agg) and `--no-plots` where it
+    is not."""
     import numpy as np
     import victor_tpu_torch.sampling as sampling
     from victor_tpu_torch.sampling.chains import read_covmat, read_getdist
 
+    plots = have_matplotlib()
+    if not plots:
+        print('  analyze: the figures are not drawn on this machine: '
+              'matplotlib is not installed here, so analyze runs with '
+              '--no-plots', flush=True)
     path = write_yaml(load_config('boss_sampling_config.yaml'),
                       os.path.join(tmp, 'boss_sampling.yaml'))
     outdir = os.path.join(tmp, 'analysis')
     with Captured('find_map') as maps, Captured('run_smc', sampling) as smcs:
-        out = cli_json(['analyze', path, '--no-plots', '--starts', '8',
-                        '--particles', '1024', '--moves', '4', '--output',
-                        outdir])
+        out = cli_json(['analyze', path] + ([] if plots else ['--no-plots'])
+                       + ['--starts', '8', '--particles', '1024', '--moves',
+                          '4', '--output', outdir])
     mres, sres = maps.results[0], smcs.results[0]
     print(f"  analyze: MAP chi2 {mres.chi2:.8f}, logZ {sres.logz:.4f} +- "
           f"{sres.logz_se:.4f}, times {out['elapsed_s']}, SMC "
@@ -2997,12 +3242,378 @@ def analyze_check(tmp):
           np.isfinite(cov).all(),
           f'analyze chains read back: {samples.shape}, covmat {cov.shape}')
     with open(os.path.join(outdir, 'report.md')) as f:
-        sections = [ln for ln in f.read().splitlines() if ln.startswith('##')]
-    check(sections == ['## Best fit', '## Goodness of fit',
-                       sections[2], '## Notes'] and
+        report = f.read()
+    sections = [ln for ln in report.splitlines() if ln.startswith('##')]
+    check(sections == ['## Best fit', '## Goodness of fit', sections[2]]
+          + (['## Figures'] if plots else []) + ['## Notes'] and
           sections[2].startswith('## Posterior (tempered SMC'),
           f'analyze report sections {sections}')
+    figures = ('corner.png', 'multipoles.png') if plots else ()
+    check(out['figures'] == [os.path.join(outdir, f) for f in figures],
+          f"analyze lists its figures: {out['figures']}")
+    for name in figures:
+        with open(os.path.join(outdir, name), 'rb') as f:
+            head = f.read(8)
+        size = os.path.getsize(os.path.join(outdir, name))
+        check(head == b'\x89PNG\r\n\x1a\n' and size > 0 and
+              f']({name})' in report,
+              f'analyze drew {name} ({size} bytes, a PNG) and the report '
+              'shows it')
     return out['elapsed_s']
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the class surface
+# ---------------------------------------------------------------------------
+
+def golden_check(what, got, key, rtol=1e-9, scale=None):
+    """`got` against API_GOLDENS[key] within rtol of the golden's largest
+    |value| (or of `scale`)."""
+    import numpy as np
+    want = np.asarray(API_GOLDENS[key], dtype=float)
+    got = np.asarray(got, dtype=float)
+    scale = float(np.abs(want).max()) if scale is None else scale
+    err = float(np.abs(got - want).max()) if got.shape == want.shape \
+        else float('inf')
+    check(err <= rtol * scale,
+          f"{what}: max |card - victor_tpu's| {err:.3e} <= {rtol:g} x "
+          f'{scale:.3e}')
+
+
+class CountedCalls:
+    """Each class call's ppoly_eval launches: `call(label, fn, expected)`
+    runs fn and checks that the launch count rose by `expected`."""
+
+    def __init__(self):
+        from victor_tpu_torch.kernels import ppoly
+        self.ppoly, self.log = ppoly, []
+
+    def call(self, label, fn, expected):
+        before = self.ppoly.LAUNCHES
+        out = fn()
+        launched = self.ppoly.LAUNCHES - before
+        self.log.append((label, launched))
+        check(launched == expected,
+              f'{label}: {launched} ppoly_eval launches ({expected})')
+        return out
+
+
+def cobaya_stand_in():
+    """A minimal cobaya-3.5 `cobaya.likelihood.Likelihood` (the base-class
+    default get_requirements) installed in sys.modules, so that the adapter
+    runs where cobaya is not installed. Returns the names installed."""
+    import types
+    cobaya = types.ModuleType('cobaya')
+    cobaya.__version__ = '3.5'
+    lik = types.ModuleType('cobaya.likelihood')
+
+    class Likelihood:
+        def get_requirements(self):
+            return {}
+
+    lik.Likelihood = Likelihood
+    cobaya.likelihood = lik
+    sys.modules.update({'cobaya': cobaya, 'cobaya.likelihood': lik})
+    return ('cobaya', 'cobaya.likelihood')
+
+
+def adapter_checks(fit, esm_fit, cfg, esm_cfg, counted):
+    """Phase 15c: the cobaya adapter through the stand-in, on the BOSS and
+    the ESM config, adopting the bundles built already (CCFFit is swapped
+    for a subclass that takes them while initialize() runs)."""
+    import importlib
+
+    from victor_tpu_torch import api
+
+    installed = cobaya_stand_in()
+    real = api.CCFFit
+    bundles = {id(cfg['model']): fit.bundle, id(esm_cfg['model']):
+               esm_fit.bundle}
+
+    class Adopting(real):
+        def __init__(self, model, data, **kw):
+            super().__init__(model, data, _bundle=bundles[id(model)], **kw)
+
+    try:
+        mod = importlib.reload(importlib.import_module(
+            'victor_tpu_torch.likelihoods.CCFLikelihood'))
+        check(mod._HAVE_COBAYA, 'the adapter bound the cobaya stand-in')
+        out = {}
+        api.CCFFit = Adopting
+        try:
+            for key, c in (('boss', cfg), ('esm', esm_cfg)):
+                obj = mod.CCFLikelihood()
+                obj.model, obj.data, obj.config_file = c['model'], c['data'], \
+                    None
+                obj.initialize()
+                out[key] = obj
+        finally:
+            api.CCFFit = real
+        boss, esm = out['boss'], out['esm']
+        check(boss.device == 'cuda' and
+              boss.ccf_fit.device.type == esm.ccf_fit.device.type == 'cuda',
+              "the adapter's default device: cuda")
+        check(boss.get_requirements() == {} and
+              boss.get_can_provide_params() == ['chi2_ccf_correct'] and
+              esm.get_can_provide_params() == ['chi2_ccf_correct',
+                                               'fsigma8'],
+              'adapter: no requirements; provides chi2_ccf_correct, and '
+              'fsigma8 for the excursion-set config only')
+        golden = dict(zip(NAMES, GOLDEN))
+        state = {}
+        counted.call('adapter calculate (BOSS)',
+                     lambda: boss.calculate(state, want_derived=True,
+                                            **golden), 3)
+        lnl, chi2 = fit.log_likelihood(golden)
+        check(state['logp'] == lnl and
+              state['derived'] == {'chi2_ccf_correct': chi2},
+              f"adapter logp {state['logp']:.10f} and derived chi2 equal "
+              "CCFFit's")
+        state = {}
+        esm.calculate(state, want_derived=True, **ESM_REF)
+        lnl, chi2 = esm_fit.log_likelihood(ESM_REF)
+        check(state['logp'] == lnl and
+              state['derived']['chi2_ccf_correct'] == chi2,
+              f"adapter (ESM) logp {lnl:.10f} and chi2 equal CCFFit's")
+        golden_check('CCFFit (ESM) (lnL, chi2) at ESM_REF', [lnl, chi2],
+                     'esm_loglike')
+        golden_check('adapter (ESM) derived fsigma8',
+                     state['derived']['fsigma8'], 'esm_fsigma8')
+        lean = {}
+        esm.calculate(lean, want_derived=False, **ESM_REF)
+        check(set(lean['derived']) == {'chi2_ccf_correct'},
+              'adapter (ESM): no fsigma8 unless derived values are wanted')
+    finally:
+        for name in installed:
+            sys.modules.pop(name, None)
+        importlib.reload(importlib.import_module(
+            'victor_tpu_torch.likelihoods.CCFLikelihood'))
+
+
+def class_surface(bundle, cfg, esm_bundle, esm_cfg):
+    """Phase 15: the class surface on the card, adopting the bundles built
+    already. Returns the kernels line's class-surface rows."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch import (BackgroundCosmology, CCFFit,
+                                  ExcursionSetProfile)
+    from victor_tpu_torch.kernels import dispersion, ppoly
+    from victor_tpu_torch.kernels.ppoly import (ppoly_eval_cuda,
+                                                ppoly_eval_plain)
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+    from victor_tpu_torch.ops import splines
+
+    t0 = time.perf_counter()
+    golden, displaced = (dict(zip(NAMES, p)) for p in (GOLDEN, DISPLACED))
+    fit = CCFFit(cfg['model'], cfg['data'], _bundle=bundle)
+    esm_fit = CCFFit(esm_cfg['model'], esm_cfg['data'], _bundle=esm_bundle)
+    check(fit.device.type == 'cuda' and fit.dtype == torch.float64,
+          f'CCFFit adopted the BOSS bundle on {fit.device}, {fit.dtype}')
+    counted = CountedCalls()
+    ppoly.LAUNCHES = dispersion.LAUNCHES = 0
+
+    # a. CCFFit on the BOSS config, f64: every theory call 3 lookups
+    print('class surface: CCFFit (15a)', flush=True)
+    for key, p in (('golden', golden), ('displaced', displaced)):
+        lnl, chi2 = counted.call(f'log_likelihood ({key})',
+                                 lambda: fit.log_likelihood(p), 3)
+        want = API_GOLDENS[f'loglike_{key}']
+        check(abs(lnl - want[0]) <= 1e-8 and abs(chi2 - want[1]) <= 1e-8,
+              f'CCFFit.log_likelihood ({key}): chi2 {chi2:.8f}, lnL '
+              f"{lnl:.8f} within 1e-8 of victor_tpu's")
+    chi2, cov = counted.call('chi_squared', lambda: fit.chi_squared(golden),
+                             3)
+    check(abs(chi2 - API_GOLDENS['loglike_golden'][1]) <= 1e-8,
+          f'CCFFit.chi_squared: chi2 {chi2:.8f}')
+    golden_check('chi_squared covariance (60 x 60): diagonal', np.diag(cov),
+                 'cov_diag', 1e-12)
+    golden_check('chi_squared covariance: row sums', cov.sum(1),
+                 'cov_rowsum', 1e-12)
+    m = counted.call('theory_multipoles (0, 2)', lambda: fit.theory_multipoles(
+        fit.s, golden, poles=(0, 2)), 3)
+    golden_check('theory_multipoles (0, 2) on the data bins',
+                 [m['0'], m['2']], 'mult')
+    odd = counted.call('theory_multipoles (1, 3)', lambda: fit.theory_multipoles(
+        fit.s, golden, poles=(1, 3)), 3)
+    scale = float(np.abs(API_GOLDENS['mult']).max())
+    worst = max(float(np.abs(odd[k]).max()) for k in ('1', '3'))
+    check(worst <= 1e-9 * scale,
+          f'theory_multipoles (1, 3): max |odd pole| {worst:.3e} <= 1e-9 x '
+          f'{scale:.3e} (mu-even xi over mu in [-1, 1])')
+    xi = counted.call('theory_xi (scalar)', lambda: fit.theory_xi(
+        API_XI_POINT[0], API_XI_POINT[1], golden), 3)
+    check(isinstance(xi, float), 'theory_xi of two scalars is a float')
+    golden_check('theory_xi (scalar)', xi, 'xi_point')
+    grid = counted.call('theory_xi (3, 5)', lambda: fit.theory_xi(
+        np.array(API_S)[:, None], np.array(API_MU)[None, :], golden), 3)
+    golden_check('theory_xi at (3, 1) x (1, 5)', grid, 'xi_grid')
+    sperp, spar = np.linspace(0.01, 85), np.linspace(-85, 85)
+    for key in ('theory_xi_2D', 'xi_2D_from_multipoles'):
+        f2 = counted.call(key, lambda: getattr(fit, key)(golden), 3)
+        golden_check(f'{key}: node values', [
+            float(f2(sperp[i], spar[j])[0, 0]) for i, j in API_NODES], key)
+    golden_check('get_interpolated_real_multipoles',
+                 fit.get_interpolated_real_multipoles(API_BETA), 'real_mult')
+    golden_check('get_interpolated_redshift_multipoles',
+                 fit.get_interpolated_redshift_multipoles(API_BETA).ravel(),
+                 'datavector')
+    golden_check('multipole_datavector', fit.multipole_datavector(API_BETA),
+                 'datavector')
+    golden_check('correlation_matrix: row sums',
+                 fit.correlation_matrix(API_BETA).sum(1), 'corr_rowsum')
+    golden_check('diagonal_errors squared',
+                 fit.diagonal_errors(API_BETA).ravel() ** 2, 'cov_diag',
+                 1e-12)
+    golden_check('delta_profiles', fit.delta_profiles(API_R, golden),
+                 'delta')
+    golden_check('velocity_terms', fit.velocity_terms(API_R, golden),
+                 'velocity')
+
+    # b. the dispersion model, fused final stage, as keyword overrides
+    print("class surface: dispersion, final 'fused' (15b)", flush=True)
+    fused = {**DISP_EXACT, 'dispersion_final': 'fused'}
+    lnl_b, chi_b = make_batched_loglike(bundle, NAMES, opts_kw=fused,
+                                        chunk=CHUNK)([GOLDEN, DISPLACED])
+    captured = []
+    real = dispersion.dispersion_final_cuda
+
+    def record(*args):
+        if not captured:
+            captured.append(tuple(t.clone() for t in args))
+        return real(*args)
+
+    ppoly_before = ppoly.LAUNCHES
+    dispersion.LAUNCHES = 0
+    dispersion.dispersion_final_cuda = record
+    try:
+        for i, p in enumerate((golden, displaced)):
+            lnl, chi2 = fit.log_likelihood(p, **fused)
+            want_l, want_c = float(lnl_b[i]), float(chi_b[i])
+            err = max(abs(lnl - want_l) / abs(want_l),
+                      abs(chi2 - want_c) / abs(want_c))
+            check(err <= 1e-9,
+                  f"CCFFit.log_likelihood (dispersion, 'fused') at "
+                  f'{GOLDEN if i == 0 else DISPLACED}: chi2 {chi2:.10f}, '
+                  f'lnL {lnl:.10f}; relative to the batched path {err:.2e}')
+    finally:
+        dispersion.dispersion_final_cuda = real
+    disp_launches = dispersion.LAUNCHES
+    check(disp_launches == 2, f'dispersion_final launches in the two class '
+          f'calls: {disp_launches} (2)')
+    print(f'  the two dispersion calls: ppoly_eval '
+          f'{ppoly.LAUNCHES - ppoly_before} launches', flush=True)
+    disp_result = compare_dispersion(captured[0], torch.float64,
+                                     planted=False)
+
+    # c. the cobaya adapter
+    print('class surface: the cobaya adapter through a stand-in (15c)',
+          flush=True)
+    adapter_checks(fit, esm_fit, cfg, esm_cfg, counted)
+    launches = ppoly.LAUNCHES
+    print(f'  ppoly_eval launches of 15a-c: {launches} ('
+          + ', '.join(f'{label} {n}' for label, n in counted.log) + ')',
+          flush=True)
+
+    # d. ExcursionSetProfile on the card
+    print('class surface: ExcursionSetProfile (15d)', flush=True)
+    esp = ExcursionSetProfile(**ESP_ARGS)
+    check(esp.device.type == 'cuda', f'ExcursionSetProfile on {esp.device}')
+    golden_check('ExcursionSetProfile fiducial sigma8 (z = 0, z)',
+                 [esp.s80_fiducial, esp.s8z_fiducial], 'esp_fiducial')
+    golden_check('ExcursionSetProfile.power',
+                 esp.power(np.array(API_K), ESP_PROFILE[0]), 'esp_power')
+    lagrange = np.linspace(1.0, 120.0, 60)
+    golden_check('model_enclosed_density_profile',
+                 esp.model_enclosed_density_profile(lagrange, *ESP_PROFILE)(
+                     np.array(API_R)), 'esp_enclosed')
+    golden_check('model_density_profile', esp.model_density_profile(
+        lagrange, *ESP_PROFILE)(np.array(API_R)), 'esp_local')
+    evolution = []
+    for s8, z in ESP_NORMS:
+        esp.set_normalisation(s8, z)
+        evolution += [esp.density_evolution(*ESP_PROFILE, pairwise=pw)(
+            np.array(API_R)) for pw in (False, True)]
+    golden_check('density_evolution after set_normalisation(0.81) and '
+                 '(0.6, z=0.57), pairwise both ways', evolution,
+                 'esp_evolution')
+
+    # e. BackgroundCosmology on card tensors
+    print('class surface: BackgroundCosmology on card tensors (15e)',
+          flush=True)
+    cosmo = BackgroundCosmology({'Omega_m': 0.31})
+    zt = torch.tensor(COSMO_Z, dtype=torch.float64, device='cuda',
+                      requires_grad=True)
+    on_card = [cosmo.growth_factor(zt), cosmo.sigma8z(zt), cosmo.fsigma8(zt)]
+    host = [cosmo.growth_factor(COSMO_Z), cosmo.sigma8z(COSMO_Z),
+            cosmo.fsigma8(COSMO_Z)]
+    check(all(isinstance(v, torch.Tensor) and v.is_cuda for v in on_card),
+          'growth_factor, sigma8z, fsigma8 of a card tensor stay on the card')
+    err = max(abs(v.detach().item() - h) / abs(h)
+              for v, h in zip(on_card, host))
+    check(err <= 1e-12, f'card tensors against host floats: {err:.2e} '
+          '(<= 1e-12 relative)')
+    on_card[0].backward()
+    golden_check('growth_factor, sigma8z, fsigma8 and d growth / dz by '
+                 "autograd on the card (victor_tpu's jax.grad)",
+                 host + [float(zt.grad)], 'cosmo')
+
+    # f. (information) one B = 1 lookup device-only, the class calls' wall
+    print('class surface: timing (15f, information)', flush=True)
+    calls = []
+
+    def rec(*args):
+        calls.append(args)
+        return ppoly_eval_cuda(*args)
+
+    splines.ppoly_eval_cuda = rec
+    try:
+        fit.log_likelihood(golden)
+    finally:
+        splines.ppoly_eval_cuda = ppoly_eval_cuda
+    x, coeffs, q, clamp = max(calls, key=lambda c: c[2].numel())
+    out_k = ppoly_eval_cuda(x, coeffs, q, clamp)
+    out_p = ppoly_eval_plain(x, coeffs, q, clamp)
+    torch.cuda.synchronize()
+    label = (f'ppoly_eval, class surface: coeffs={tuple(coeffs.shape)} '
+             f'q={tuple(q.shape)} clamp={clamp}')
+    err = compare_outputs(label, out_k, out_p, q.dtype)
+    K = coeffs.shape[1] if coeffs.ndim == 4 else 1
+    result = timed(label, err, lambda: ppoly_eval_cuda(x, coeffs, q, clamp),
+                   lambda: ppoly_eval_plain(x, coeffs, q, clamp),
+                   nbytes(x, coeffs, q, out_k),
+                   q.numel() * ppoly_ops(x.shape[0], K))
+
+    def wall_ms(fn, reps=20):
+        fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / reps
+    result['loglike_wall_ms'] = wall_ms(lambda: fit.log_likelihood(golden))
+    result['multipoles_wall_ms'] = wall_ms(
+        lambda: fit.theory_multipoles(fit.s, golden))
+    bound_ms, _ = bound(result['bytes'], result['ops'], torch.float64)
+    print(f"  class surface (B = 1): the largest lookup {result['ms']:.4f} "
+          f'ms device only against its bound {bound_ms:.4f} ms '
+          f"({100 * bound_ms / result['ms']:.1f}%), host "
+          f"{result['host_us']:.1f} us per call; CCFFit.log_likelihood "
+          f"{result['loglike_wall_ms']:.2f} ms, theory_multipoles "
+          f"{result['multipoles_wall_ms']:.2f} ms wall per call", flush=True)
+    print(f'  phase 15: {time.perf_counter() - t0:.2f} s', flush=True)
+    f64 = torch.float64
+    row = kernel_row(
+        'ppoly_eval, class surface, B = 1 (the largest lookup of one '
+        'CCFFit.log_likelihood; launches: all class calls of 15a-c)',
+        'ppoly_eval.cu', 'victor_tpu/ops/splines.py:537', launches, result,
+        f64)
+    row.update(loglike_wall_ms=result['loglike_wall_ms'],
+               multipoles_wall_ms=result['multipoles_wall_ms'])
+    return [row, kernel_row(
+        "dispersion_final, class surface, B = 1 (CCFFit.log_likelihood, "
+        "final 'fused')", 'dispersion_final.cu',
+        'victor_tpu/ops/dispersion_pallas.py:32', disp_launches, disp_result,
+        f64)]
 
 
 def kernel_row(name, source, replaces, launches, result, dtype,
@@ -3041,7 +3652,11 @@ def main() -> int:
                         help='run phases 14a-e and g (SMC, NS, post, '
                              'tension, analyze) alone, writing into DIR; the '
                              'full run starts this itself beside phase 12d')
+    parser.add_argument('--class-surface', action='store_true',
+                        help='build the kernels and run phase 15 (the class '
+                             'surface) alone, printing its kernel rows')
     args = parser.parse_args()
+    t_start = time.perf_counter()
 
     import dataclasses
 
@@ -3070,6 +3685,15 @@ def main() -> int:
         return 0
     if args.evidence_child:
         evidence_child(args.evidence_child)
+        return 0
+    if args.class_surface:
+        build_kernels()
+        cfg, esm_cfg = load_config(), load_config('esm_sampling_config.yaml')
+        rows = class_surface(
+            build_tables(cfg['model'], cfg['data'], device='cuda'), cfg,
+            build_tables(esm_cfg['model'], esm_cfg['data'], device='cuda'),
+            esm_cfg)
+        print(json.dumps({'kernels': rows}), flush=True)
         return 0
 
     # ---- 2. build the kernels ----
@@ -3265,7 +3889,12 @@ def main() -> int:
           f'{cmp_s[0]:.2f} + {cmp_s[1]:.2f} s; the parent\'s part of phase '
           f'14 {time.perf_counter() - t14:.2f} s', flush=True)
 
+    # ---- 15. the class surface ----
+    class_rows = class_surface(bundle, cfg, esm_bundle, esm_cfg)
+
     f64 = torch.float64
+    print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all '
+          f'({card})', flush=True)
     print(f'card: {card}', flush=True)
     print(json.dumps({'kernels': [
         kernel_row('ppoly_eval', 'ppoly_eval.cu',
@@ -3305,7 +3934,7 @@ def main() -> int:
                    "'fused', 1024 particles, chunk of 64)",
                    'dispersion_final.cu',
                    'victor_tpu/ops/dispersion_pallas.py:32', cmp_launches,
-                   cmp_result, f64)]}), flush=True)
+                   cmp_result, f64)] + class_rows}), flush=True)
     evidence_dir.cleanup()
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

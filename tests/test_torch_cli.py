@@ -619,11 +619,43 @@ def test_analyze_no_plots_writes_the_report(sampling_cfg, narrow, tmp_path,
         headings('j')[0]
 
 
-def test_analyze_without_no_plots_exits(sampling_cfg, tmp_path):
-    """The figures need plottools.py and api.CCFFit, not ported yet: without
-    --no-plots analyze exits before any work, naming ROADMAP item 9."""
-    out = tmp_path / 'never'
-    with pytest.raises(SystemExit, match='item 9'):
-        tmain(['analyze', _write(tmp_path, sampling_cfg), '--output',
-               str(out), '--device', 'cpu'])
-    assert not out.exists()
+def test_analyze_writes_the_figures(sampling_cfg, narrow, tmp_path, capsys,
+                                    monkeypatch):
+    """`analyze` without --no-plots draws corner.png and multipoles.png
+    (non-empty PNGs) and lists them as victor_tpu's report does: its
+    analyze, given the port's MAP and SMC results, writes the same Figures
+    section and the same `figures` JSON (its data-vs-model panels stubbed:
+    they would plot the port's MAP through victor_tpu's CCFFit)."""
+    import victor_tpu.__main__ as jcli
+    import victor_tpu.sampling as jsampling
+    import victor_tpu.sampling.optimize as joptimize
+    import victor_tpu_torch.sampling as tsampling
+    import victor_tpu_torch.sampling.optimize as toptimize
+    path = _write(tmp_path, sampling_cfg)
+    maps = _capture(monkeypatch, toptimize, 'find_map')
+    smcs = _capture(monkeypatch, tsampling, 'run_smc')
+    args = ['analyze', path, '--starts', '2', '--adam-steps', '20',
+            '--particles', '24', '--moves', '1']
+    tmain(args + ['--output', str(tmp_path / 't'), '--device', 'cpu'])
+    got = _json(capsys)
+    for name in ('corner.png', 'multipoles.png'):
+        with open(tmp_path / 't' / name, 'rb') as f:
+            assert f.read(8) == b'\x89PNG\r\n\x1a\n', name
+        assert os.path.getsize(tmp_path / 't' / name) > 10_000, name
+    _replay(monkeypatch, joptimize, 'find_map', maps)
+    _replay(monkeypatch, jsampling, 'run_smc', smcs)
+    monkeypatch.setattr(jcli, '_plot_map_multipoles',
+                        lambda cfg, bundle, mres, out: open(out, 'wb').close())
+    jmain(args + ['--output', str(tmp_path / 'j')])
+    want = _json(capsys)
+    assert [os.path.relpath(f, tmp_path / 't') for f in got['figures']] == \
+        [os.path.relpath(f, tmp_path / 'j') for f in want['figures']] == \
+        ['corner.png', 'multipoles.png']
+
+    def figures(d):
+        with open(tmp_path / d / 'report.md') as f:
+            text = f.read()
+        return text[text.index('## Figures'):text.index('## Notes')]
+    assert figures('t') == figures('j')
+    assert '![data vs best-fit model multipoles](multipoles.png)' in \
+        figures('t')

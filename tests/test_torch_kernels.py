@@ -862,3 +862,55 @@ def test_dispersion_cuda_tensors_launch_the_kernel_through_ops(cuda_device):
                                    atol=1e-12 * float(w[torch.isfinite(w)]
                                                       .abs().max()),
                                    equal_nan=True)
+
+
+def _boss_config_npz():
+    """configs/boss_config.yaml reading the .npz copies of its data files
+    (data/BOSS_DR12_CMASS_npz), so that the test runs where h5py is
+    absent."""
+    import os
+
+    import yaml
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(repo, 'configs', 'boss_config.yaml')) as f:
+        cfg = yaml.safe_load(f)
+
+    def npz(path):
+        stem = os.path.splitext(os.path.basename(path))[0]
+        return os.path.join('data', 'BOSS_DR12_CMASS_npz', stem + '.npz')
+    cfg['model']['input_model_data_file'] = npz(
+        cfg['model']['input_model_data_file'])
+    for block in ('redshift_space_ccf', 'covariance_matrix'):
+        cfg['data'][block]['data_file'] = npz(cfg['data'][block]['data_file'])
+    cfg['model']['dir'] = cfg['data']['dir'] = repo
+    return cfg
+
+
+@pytest.mark.cuda
+def test_class_surface_on_the_card_launches_the_kernels(cuda_device):
+    """CCFFit on the card: each exact theory call launches ppoly_eval three
+    times (v_r, sigma_v, xi_0), dispersion_final='fused' launches
+    dispersion_final once, and the values agree with the CPU port."""
+    from victor_tpu_torch.api import CCFFit
+    cfg = _boss_config_npz()
+    cpu = CCFFit(cfg['model'], cfg['data'], device='cpu')
+    card = CCFFit(cfg['model'], cfg['data'],
+                  _bundle=cpu.bundle.to(cuda_device, torch.float64))
+    golden = {'fsigma8': 0.47, 'beta': 0.37, 'sigma_v': 380.0,
+              'epsilon': 1.0}
+    fused = {'rsd_model': 'dispersion', 'dispersion_interior': 'exact',
+             'dispersion_final': 'fused'}
+    for kw in ({}, fused):
+        before = (ppoly.LAUNCHES, dispersion.LAUNCHES)
+        got = card.log_likelihood(golden, **kw)
+        if not kw:
+            assert ppoly.LAUNCHES == before[0] + 3
+        assert dispersion.LAUNCHES == before[1] + bool(kw)
+        want = cpu.log_likelihood(golden, **kw)
+        np.testing.assert_allclose(got, want, rtol=1e-9)
+    before = ppoly.LAUNCHES
+    got = card.theory_multipoles(card.s, golden)
+    assert ppoly.LAUNCHES == before + 3
+    want = cpu.theory_multipoles(cpu.s, golden)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-12)

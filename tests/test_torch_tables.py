@@ -218,7 +218,9 @@ def test_npz_copies_equal_hdf5(name):
 
 def test_port_imports_without_jax():
     """Import every victor_tpu_torch module in a process where importing
-    jax or the JAX package raises."""
+    jax or the JAX package raises. The package's own import (the class
+    surface it exports) builds no kernel and imports neither matplotlib
+    nor h5py."""
     code = '''
 import importlib, pkgutil, sys
 class NoJax:
@@ -227,6 +229,12 @@ class NoJax:
             raise ImportError(name + ' is blocked')
 sys.meta_path.insert(0, NoJax())
 import victor_tpu_torch
+from victor_tpu_torch.kernels import _build
+assert not _build._LOADED
+assert set(victor_tpu_torch.__all__) >= {
+    'BackgroundCosmology', 'CCFModel', 'CCFFit', 'ExcursionSetProfile',
+    'plottools', 'utils'}
+assert not any(m.split('.')[0] in ('matplotlib', 'h5py') for m in sys.modules)
 names = [m.name for m in pkgutil.walk_packages(victor_tpu_torch.__path__,
                                                 'victor_tpu_torch.')]
 for name in names:
@@ -245,8 +253,10 @@ print(' '.join(names))
         'sampling.chains', 'sampling.targets', 'sampling.hmc', 'sampling.mh',
         'sampling.nuts', 'sampling.runner', 'sampling.smc',
         'sampling.nested', 'sampling.post', 'sampling.tension',
-        'kernels.ppoly')} <= names
-    assert len(names) >= 28
+        'kernels.ppoly', 'api', 'plottools', 'likelihoods',
+        'likelihoods.CCFLikelihood', 'utils.multipoles', 'utils.converters',
+        'models.cosmology', 'models.eisenstein_hu', 'models.esm')} <= names
+    assert len(names) >= 34
     # the backward kernel is built from the forward's source, and launched
     # from the module imported above
     with open(os.path.join(REPO, 'victor_tpu_torch', 'kernels', 'csrc',

@@ -4,7 +4,7 @@
     python -m victor_tpu_torch eval <config.yaml>     # one likelihood evaluation
     python -m victor_tpu_torch fit <config.yaml>      # MAP + Laplace errors
     python -m victor_tpu_torch scan <config.yaml> --param fsigma8
-    python -m victor_tpu_torch analyze <config.yaml> --no-plots  # MAP + SMC report
+    python -m victor_tpu_torch analyze <config.yaml>  # MAP + SMC report, figures
     python -m victor_tpu_torch post <config.yaml> --chains <root> --set ...
     python -m victor_tpu_torch tension <a.yaml> <b.yaml>   # ln R + parameter shift
     python -m victor_tpu_torch compare <a.yaml> <b.yaml>   # Delta ln Z
@@ -22,8 +22,7 @@ max_depth, rhat_stop, n_particles, n_moves, ess_target, n_live, n_batch,
 n_steps, dlogz, seed, output, checkpoint, covmat; cobaya's own `mcmc:`
 nesting maps to mh, its `polychord:` nesting to ns and its `minimize:`
 nesting to `fit`). A top-level `quantiles:` list is a multi-quantile joint
-fit. `analyze`'s figures are not ported yet and exit with a message:
-`analyze --no-plots` writes the rest of the report.
+fit.
 """
 
 from __future__ import annotations
@@ -33,10 +32,6 @@ import json
 import sys
 import time
 
-_NOT_PORTED = ("analyze's figures (the corner plot and the data-vs-model "
-               "multipoles) need plottools.py and api.CCFFit, which are not "
-               "ported yet (ROADMAP item 9): pass --no-plots for the report, "
-               "chains and covmat without them, or use victor_tpu")
 # (warmup, draws, segment length) of each chain sampler when the config and
 # the command line give none: MH's draws are one likelihood call each but
 # mix slowly; NUTS's draw count is a cap under its default rhat_stop
@@ -620,6 +615,39 @@ def cmd_scan(args):
     print(json.dumps(out, indent=2))
 
 
+def _plot_map_multipoles(cfg, bundle, mres, out_path):
+    """Data-with-errors vs best-fit-model multipole panels at the MAP
+    (api.CCFFit.plot_multipole_comparison per measured pole), the
+    reference notebooks' model-vs-data figure, emitted by `analyze`.
+
+    Adopts the already-built bundle (no second table ingestion) and labels
+    with mres.chi2 directly (the chi2=True path would evaluate the
+    likelihood again just for the legend)."""
+    import matplotlib
+    matplotlib.use('Agg')
+    import matplotlib.pyplot as plt
+    import torch
+
+    from .api import CCFFit
+
+    fit = CCFFit(cfg['model'], cfg['data'], _bundle=bundle)
+    full = {k: float(v) for k, v in
+            mres.space.full_params(torch.as_tensor(mres.theta)).items()}
+    poles = fit.poles_s
+    fig, axes = plt.subplots(1, len(poles), figsize=(4.8 * len(poles), 3.9),
+                             squeeze=False)
+    for ax, ell in zip(axes[0], poles):
+        label = (f'best fit $\\chi^2={mres.chi2:.2f}$'
+                 if ell == poles[0] else 'best fit')
+        fit.plot_multipole_comparison({**full, 'label': label},
+                                      ell=ell, ax=ax)
+        ax.set_title(rf'$\ell = {ell}$')
+        ax.legend(fontsize=9)
+    fig.tight_layout()
+    fig.savefig(out_path, dpi=120)
+    plt.close(fig)
+
+
 def cmd_analyze(args):
     """One-command full analysis: MAP + Laplace errors, then a tempered-SMC
     posterior (GetDist chains + log-evidence), written up as a report.
@@ -628,8 +656,6 @@ def cmd_analyze(args):
     numbers — the interval type whose coverage is measured to be nominal
     for every parameter including beta (tools/coverage_test.py --method
     smc/sbc; BASELINE.md round 3) — alongside the MAP and Laplace sigmas.
-    The figures are not ported yet: without --no-plots the command exits
-    before any work.
     """
     import os
 
@@ -638,8 +664,6 @@ def cmd_analyze(args):
     from .sampling import run_smc
     from .sampling.optimize import find_map
 
-    if not args.no_plots:
-        sys.exit(f'analyze: {_NOT_PORTED}')
     cfg = _apply_set(_load(args.config), args.set)
     if not _has_data(cfg):
         sys.exit('analyze requires a data: block (data vector + covariance)')
@@ -682,6 +706,19 @@ def cmd_analyze(args):
     part = sres.particles
     lo68, med, hi68 = np.quantile(part, [0.1585, 0.5, 0.8415], axis=0)
     mean, std = part.mean(axis=0), part.std(axis=0)
+
+    figures = []
+    if not args.no_plots:
+        from .plottools import corner_plot
+        corner_plot(part, names, os.path.join(outdir, 'corner.png'))
+        figures.append(('corner.png',
+                        'posterior corner plot (68/95% contours)'))
+        if 'quantiles' not in cfg:
+            # data-vs-MAP multipoles need the single-dataset CCFFit surface
+            _plot_map_multipoles(cfg, bundle, mres,
+                                 os.path.join(outdir, 'multipoles.png'))
+            figures.append(('multipoles.png',
+                            'data vs best-fit model multipoles'))
 
     lines = [
         f'# victor_tpu_torch analysis: {os.path.basename(args.config)}',
@@ -726,6 +763,9 @@ def cmd_analyze(args):
     if derived:
         lines += ['', '## Derived parameters (at the MAP)', '']
         lines += [f'- {k} = {v:.6g}' for k, v in derived.items()]
+    if figures:
+        lines += ['', '## Figures', '']
+        lines += [f'![{caption}]({fname})' for fname, caption in figures]
     lines += [
         '',
         '## Notes',
@@ -744,7 +784,7 @@ def cmd_analyze(args):
 
     print(json.dumps(_json_sanitize({
         'report': report,
-        'figures': [],
+        'figures': [os.path.join(outdir, f) for f, _ in figures],
         'chi2': round(mres.chi2, 4), 'ndof': ndof, 'p_value': round(p_val, 4),
         'posterior_predictive_p': round(ppp, 4),
         'log_evidence': round(sres.logz, 3),
@@ -1126,8 +1166,7 @@ def main(argv=None):
                     help='SMC mutation moves per stage')
     pa.add_argument('--seed', type=int, default=0)
     pa.add_argument('--no-plots', action='store_true',
-                    help='skip the corner / model-vs-data figures (not '
-                         'ported yet: required)')
+                    help='skip the corner / model-vs-data figures')
     pa.add_argument('--device', default='cuda', help=device_help)
     pa.set_defaults(fn=cmd_analyze)
 

@@ -168,3 +168,31 @@ def sigma80(p: EisensteinHuParams):
     integrand = (power_eh(p, x / 8.0) * ipow(x / 8.0, 3) * ipow(window, 2) / x
                  / (2.0 * math.pi ** 2))
     return torch.sqrt(torch.sum(w * integrand, dim=-1))
+
+
+class EisensteinHu:
+    """Thin class wrapper with the reference's API (victor/eisenstein_hu.py:5):
+    one cosmology, its coefficients as (1,) tensors on `device` (the card
+    unless 'cpu' is asked for) in `dtype`. `power_EH` returns k's shape: a
+    tensor for a tensor k, an ndarray otherwise."""
+
+    def __init__(self, h, omega_m, omega_b, ns=0.965, As=2e-9, Tcmb=2.7255,
+                 *, device='cuda', dtype=torch.float64):
+        from ..io.tables import _target_device
+        self.device, self.dtype = _target_device(device), dtype
+
+        def one(v):
+            return torch.tensor([float(v)], dtype=dtype, device=self.device)
+        self.params = eisenstein_hu_params(one(h), one(omega_m), one(omega_b),
+                                           one(ns), As, Tcmb)
+        self.h, self.omega_m, self.omega_b, self.ns, self.As = \
+            h, omega_m, omega_b, ns, As
+        self.sound_horizon = float(self.params.sound_horizon[0])
+
+    def power_EH(self, k):
+        kt = torch.as_tensor(k, dtype=self.dtype, device=self.device)
+        pk = power_eh(self.params, kt.reshape(-1))[0].reshape(kt.shape)
+        return pk if isinstance(k, torch.Tensor) else pk.cpu().numpy()
+
+    def compute_sigma80(self):
+        return float(sigma80(self.params)[0])

@@ -22,15 +22,17 @@ multilinear interpolation of a grid of CAMB tables over named cosmology axes.
 The nonlinear velocity is the *intended* density_evolution: the reference's
 is unreachable (`model_1halo` unbound at excursion_set_profile.py:460).
 
-The host-side `ExcursionSetProfile` class of the JAX module is class surface
-and comes with ROADMAP Queue 1 item 9.
+`ExcursionSetProfile` is the host-side class with the reference surface over
+these functions, one parameter point (B = 1) per call.
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import types
 
+import numpy as np
 import torch
 
 from ..ops.special import clip, growth_factor_lcdm, ipow
@@ -337,3 +339,160 @@ def esm_s8z(tables, spec, params):
     """sigma8(z_eff) after normalisation, (B,): the derived quantity behind
     fsigma8 = f * s8z (victor/ccf_model.py:530-532, CCFLikelihood.py:40-42)."""
     return esm_state(tables, spec, params)['s8z']
+
+
+# ---------------------------------------------------------------------------
+# class wrapper with the reference surface (victor/excursion_set_profile.py:6)
+# ---------------------------------------------------------------------------
+
+class ExcursionSetProfile:
+    """Standalone class API mirroring the reference ExcursionSetProfile
+    (victor_tpu/models/esm.py:364-511).
+
+    A host-side wrapper over the functions above at one parameter point
+    (B = 1), its tables on `device` (the card unless 'cpu' is asked for) in
+    `dtype`. The profile methods return callables, evaluated on the device
+    per call, matching the reference's returned scipy interpolators; each
+    snapshots its own call's z and x grid. `model_density_profile` and
+    `density_evolution` implement the intended behaviour (both are broken or
+    unreachable in the reference; SURVEY.md §2b).
+    """
+
+    def __init__(self, h, omega_m, omega_b, z=0, ns=0.965, omega_k=0,
+                 mnu=0.06, npts=200, use_eisenstein_hu=True, camb_accuracy=1,
+                 pk_table=None, *, device='cuda', dtype=torch.float64):
+        from .. import ops as _ops
+        from ..io.tables import _target_device
+
+        self.device, self.dtype = _target_device(device), dtype
+        self.omega_m = omega_m
+        self.omega_b = omega_b
+        self.omega_l = 1 - omega_m - omega_k
+        self.z = z
+        k = np.logspace(-4, np.log10(2), npts)
+        tbl = dict(z_eff=self._t(float(z)), esm_k=self._t(k),
+                   esm_kw=self._t(_ops.trapz_weights(k)), esm_pk0=None,
+                   esm_s80=None, esm_s8z=None, esm_x50=None,
+                   esm_pk_grid=None)
+        use_eh = use_eisenstein_hu
+        if not use_eh and pk_table is not None:
+            # resample onto this instance's k grid (the table may have been
+            # generated with a different npts/kmax): the cubic-spline
+            # ingestion of io/tables.py
+            from scipy.interpolate import InterpolatedUnivariateSpline as IUS
+            tbl['esm_pk0'] = self._t(IUS(np.asarray(pk_table['k']),
+                                         np.asarray(pk_table['pk0']), k=3)(k))
+            tbl['esm_s80'] = self._t(float(pk_table['sigma8_0']))
+            tbl['esm_s8z'] = self._t(float(pk_table['sigma8_z']))
+        elif not use_eh:
+            # the reference prints a fallback warning when camb is absent
+            # (excursion_set_profile.py:63-70); here the CAMB path is a
+            # precomputed pk_table (tools/make_camb_table.py): falling back
+            # silently would hand out percent-level-different P(k)
+            from ..utils.logging import get_logger
+            get_logger('esm').warning(
+                'use_eisenstein_hu=False requires pk_table= (generate one '
+                'with tools/make_camb_table.py); falling back to the '
+                'Eisenstein-Hu fitting formula')
+            use_eh = True
+        self._tables = types.SimpleNamespace(**tbl)
+        self._spec = types.SimpleNamespace(esm_use_eh=use_eh)
+        self._base = {'H0': h * 100.0, 'Omega_m': omega_m, 'Omega_b': omega_b,
+                      'ns': ns, 'Omega_k': omega_k}
+        st = esm_state(self._tables, self._spec,
+                       self._tp({**self._base, 'sigma_8_0': 1.0}))
+        # fiducial (un-normalised) sigma8 values, reference attribute names
+        if use_eh:
+            p = eisenstein_hu_params(*(self._t([v]) for v in
+                                       (h, omega_m, omega_b, ns)), As=2e-9)
+            self.s80_fiducial = float(sigma80(p)[0])
+            self.s8z_fiducial = self.s80_fiducial * float(st['Dz'][0])
+        else:
+            self.s80_fiducial = float(pk_table['sigma8_0'])
+            self.s8z_fiducial = float(pk_table['sigma8_z'])
+        self.normalisation = 1.0
+        self._sigma8 = None
+        self.use_eisenstein_hu = use_eh
+
+    def _t(self, v) -> torch.Tensor:
+        return torch.as_tensor(v, dtype=self.dtype, device=self.device)
+
+    def _tp(self, params) -> dict:
+        """A parameter point as the functions above take it: (1,) tensors."""
+        return {k: self._t(v).reshape(1) for k, v in params.items()}
+
+    def _snapshot(self, **fields):
+        """The tables with this call's fields: a returned callable must not
+        alias instance state (the reference returns snapshot scipy splines;
+        a later call with another z must not change profiles handed out
+        earlier)."""
+        return types.SimpleNamespace(**{**vars(self._tables), **fields})
+
+    # -- reference methods ------------------------------------------------
+    def growth_factor(self, z):
+        return float(esm_growth_factor(self._t(float(z)), self.omega_m,
+                                       self.omega_l))
+
+    def set_normalisation(self, sigma8, z=0):
+        if z == 0:
+            self.normalisation = (sigma8 / self.s80_fiducial) ** 2
+            self._sigma8 = sigma8
+        else:
+            self.normalisation = (sigma8 / self.s8z_fiducial) ** 2
+            self._sigma8 = sigma8 * self.s80_fiducial / self.s8z_fiducial
+
+    def _params(self, b10, b01, Rp, Rx, delta_c=1.686):
+        s80 = self._sigma8 if self._sigma8 is not None else self.s80_fiducial
+        return self._tp({**self._base, 'sigma_8_0': s80, 'b10': b10,
+                         'b01': b01, 'Rp': Rp, 'Rx': Rx, 'delta_c': delta_c})
+
+    def power(self, k, z):
+        st = esm_state(self._tables, self._spec,
+                       self._tp({**self._base,
+                                 'sigma_8_0': self.s80_fiducial}))  # un-normalised
+        D = esm_growth_factor(self._t(float(z)), self.omega_m, self.omega_l)
+        coeffs = cubic_coeffs_dynamic(st['k'], st['pk'][0])
+        q = self._t(np.asarray(k, dtype=float))
+        out = ppoly_eval_dynamic(st['k'][None], coeffs[None],
+                                 q.reshape(1, -1))[0] * ipow(D, 2)
+        return out.reshape(q.shape).cpu().numpy()
+
+    def model_enclosed_density_profile(self, r, z, b10, b01, Rp, Rx,
+                                       delta_c=1.686):
+        t = self._snapshot(z_eff=self._t(float(z)))
+        params = self._params(b10, b01, Rp, Rx, delta_c)
+        spec = self._spec
+        r = self._t(np.atleast_1d(np.asarray(r, dtype=float)))
+
+        def profile(q):
+            # the module pipeline with r as the Lagrangian grid
+            st = esm_state(t, spec, params)
+            re_, oneh = eulerian_1halo(st, r, params['b10'], params['b01'],
+                                       params['Rp'], params['Rx'])
+            two = eulerian_2halo(st, re_, params['Rp'], params['Rx'])
+            model = oneh + _col(ipow(st['Dz'], 2)) * two
+            qt = self._t(np.atleast_1d(np.asarray(q, dtype=float)))
+            return _masked_monotone_interp(re_, model, qt)[0].cpu().numpy()
+        return profile
+
+    def model_density_profile(self, r, z, b10, b01, Rp, Rx, delta_c=1.686):
+        enclosed = self.model_enclosed_density_profile(r, z, b10, b01, Rp, Rx,
+                                                       delta_c)
+        r = np.atleast_1d(np.asarray(r, dtype=float))
+        vals = enclosed(r)
+        deriv = np.gradient(vals, r)
+        from scipy.interpolate import InterpolatedUnivariateSpline as IUS
+        return IUS(r, vals + r * deriv / 3.0)
+
+    def density_evolution(self, z, b10, b01, Rp, Rx, delta_c=1.686,
+                          r_max=120, pairwise=False):
+        t = self._snapshot(z_eff=self._t(float(z)),
+                           esm_x50=self._t(np.linspace(0.1, r_max, 50)))
+        params = self._params(b10, b01, Rp, Rx, delta_c)
+        spec = self._spec
+
+        def fn(q):
+            qt = self._t(np.atleast_1d(np.asarray(q, dtype=float)))
+            return density_evolution_at(t, spec, params, qt,
+                                        pairwise=pairwise)[0].cpu().numpy()
+        return fn

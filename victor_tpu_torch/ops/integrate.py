@@ -50,3 +50,10 @@ def simpson_weights(n: int, dx: float = 1.0) -> np.ndarray:
         w = 0.5 * (w1 + w2)
     return w * dx
 
+
+
+def gauss_legendre(n: int, a: float = -1.0, b: float = 1.0):
+    """Gauss-Legendre nodes and weights on [a, b]."""
+    x, w = np.polynomial.legendre.leggauss(n)
+    xm, xr = 0.5 * (b + a), 0.5 * (b - a)
+    return xm + xr * x, xr * w

@@ -115,9 +115,11 @@ def hyp2f1_growth(z: torch.Tensor) -> torch.Tensor:
 def growth_factor_lcdm(z, omega_m, omega_l):
     """Linear growth factor D(z) from the flat-LCDM hyp2f1 closed form
     (victor/cosmology.py:234-242). D(0) = sqrt(omega_m + omega_l), exactly 1
-    only in the flat case, as in the reference. Tensors broadcast."""
+    only in the flat case, as in the reference. z is a tensor; omega_m and
+    omega_l are tensors that broadcast against it, or numbers."""
     az = 1.0 / (1.0 + z)
     num = az ** 2.5 * torch.sqrt(omega_l + omega_m * az ** -3.0) * \
         hyp2f1_growth(-(omega_l * az ** 3.0) / omega_m)
-    den = hyp2f1_growth(-omega_l / omega_m)
+    den = hyp2f1_growth(torch.as_tensor(-omega_l / omega_m, dtype=az.dtype,
+                                        device=az.device))
     return num / den

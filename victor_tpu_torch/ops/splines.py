@@ -105,6 +105,36 @@ def pchip_coeffs(x: np.ndarray, y: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(c)
 
 
+def bicubic_cell_coeffs(x: np.ndarray, y: np.ndarray, z: np.ndarray) -> np.ndarray:
+    """Per-cell bicubic polynomial coefficients of RectBivariateSpline(x, y, z)
+    (victor_tpu/ops/splines.py:138-166), host numpy.
+
+    Returns A of shape (nx-1, ny-1, 4, 4) in *normalized* cell coordinates:
+        f(q, p) = sum_{a,b} A[i, j, a, b] * u**a * v**b,
+        u = (q - x[i]) / (x[i+1] - x[i]),  v = (p - y[j]) / (y[j+1] - y[j]),
+    by exactly fitting the (bicubic) restriction of the spline on a 4x4
+    sample grid per cell; agrees with `RectBivariateSpline.ev` to ~1e-13.
+    `Bicubic2D` stores the same surface in tensor-product form instead.
+    """
+    from scipy.interpolate import RectBivariateSpline
+    x = np.asarray(x, dtype=np.float64)
+    y = np.asarray(y, dtype=np.float64)
+    z = np.asarray(z, dtype=np.float64)
+    rbs = RectBivariateSpline(x, y, z, kx=3, ky=3, s=0)
+    nx, ny = len(x) - 1, len(y) - 1
+    offs = np.array([0.0, 1.0 / 3.0, 2.0 / 3.0, 1.0])
+    V = offs[:, None] ** np.arange(4)[None, :]
+    Vinv = np.linalg.inv(V)
+    dx = np.diff(x)
+    dy = np.diff(y)
+    xs = (x[:-1, None] + offs[None, :] * dx[:, None]).ravel()
+    ys = (y[:-1, None] + offs[None, :] * dy[:, None]).ravel()
+    XX, YY = np.meshgrid(xs, ys, indexing='ij')
+    F = rbs.ev(XX.ravel(), YY.ravel()).reshape(nx, 4, ny, 4)
+    A = np.einsum('pu,iujv,qv->ijpq', Vinv, F, Vinv)
+    return np.ascontiguousarray(A)
+
+
 def _tensor(a, device, dtype):
     """A numpy array or tensor as a tensor on `device` of `dtype`."""
     if isinstance(a, torch.Tensor):
