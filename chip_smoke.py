@@ -188,7 +188,33 @@ result line is printed):
       device-only against its bound, the wrapper's host us, the wall ms of
       one log_likelihood and one theory_multipoles call: the class-surface
       rows of the kernels line. `--class-surface` runs phases 2 and 15
-      alone.
+      alone;
+16. the scale-out layer (parallel/mesh.py) at full BOSS width, f64, exact
+   modes:
+   a. `make_sharded_loglike` over `make_mesh(('walkers',))` (every card:
+      one here) on SCALE_N prior draws against `make_batched_loglike`
+      within 1e-12 relative, 3 ppoly_eval launches per chunk per shard;
+   b. the same over a 2-way mesh that names cuda:0 twice: the launches
+      double; every lookup of the call held against its plain version and
+      timed (the phase's row of the kernels line, its launches b's);
+   c. `python -m victor_tpu_torch.parallel.probe --device cuda --backend
+      gloo`: two processes on cuda:0 (NCCL refuses two ranks on one card),
+      started beside phase 12d; `ok`, 3 launches per process;
+   d. a short MH run (SCALE_MH) and an SMC run (SCALE_SMC) on QUAD_BLOCK
+      with a 2-way mesh against the same runs without: the same accept
+      decisions and stage count, chains and logZ within 5e-6 relative;
+   e. `utils.profiling.trace` around one 2-way sharded call: the trace
+      names the ppoly_eval kernel; `throughput` of the batched path, the
+      2-way mesh and the mesh over every card at SCALE_TIMED_N points,
+      chunk 64, in turns, and with more than one card the default modes
+      batched and over every card (for information).
+   `--scale-out` runs phases 2 and 16 alone (the probe first).
+   `--cli-cards` (information, for a machine with several cards) builds
+   the kernels and runs `python -m victor_tpu_torch run` with its
+   defaults under `--sampler smc` and with 30 + 30 steps under `--sampler
+   hmc`, each with CUDA_VISIBLE_DEVICES=0 and then with every card
+   visible: the CLI meshes SMC over every card and keeps HMC on one; the
+   printed results must agree, and the seconds are printed.
 
 Before them the script prints its own wall time. The last two lines are a
 JSON summary of the kernels (device-only `ms`, `host_us`; the sampler
@@ -774,6 +800,17 @@ API_GOLDENS = {
         0.74379423261561, 0.60247332841864, 0.4703226828524,
         -0.36919217670678],
 }
+# Phase 16: the scale-out layer. SCALE_N parameter points (draw_theta, seed
+# 16) through the sharded BOSS likelihood in the exact modes, unchunked, so
+# each shard launches ppoly_eval 3 times (v_r, sigma_v, xi_0); 16d's short
+# MH run (chains, warmup, draws) and SMC run (particles, moves) on
+# QUAD_BLOCK; 16e's throughput at SCALE_TIMED_N points, chunk 64.
+SCALE_N = 256
+SCALE_MH = (8, 30, 30)
+SCALE_SMC = (256, 2)
+SCALE_TIMED_N = 4096
+SCALE_TOL = 1e-12             # sharded against batched, relative
+SCALE_RUN_TOL = 5e-6          # a mesh run against its unsharded run
 
 
 def check(ok, what):
@@ -1605,10 +1642,11 @@ def cold_ms(x, coeffs, q, clamp, copies=6):
         ppoly_eval_cuda(x, coeffs, next(turn), clamp)))
 
 
-def sampler_kernel_case(bundle, theta, what='the MH step'):
+def sampler_kernel_case(bundle, theta, what='the MH step', run=None):
     """Every ppoly_eval call of one likelihood evaluation of `what` (default
     modes; theta (B, 4): the MH step's 8 chains, a particle sampler's chunk
-    of 64) against the plain version on the same inputs, each timed back to
+    of 64; or the call `run()` makes) against the plain version on the same
+    inputs, each timed back to
     back on one q, as the step finds it just written (L2 warm); the largest
     also with L2 cold (`cold_ms`). Returns the largest call's `timed`
     result, whose `ms` is the cold reading and `warm_ms` the warm one, and
@@ -1627,7 +1665,10 @@ def sampler_kernel_case(bundle, theta, what='the MH step'):
 
     splines.ppoly_eval_cuda = record
     try:
-        make_batched_loglike(bundle, NAMES)(theta)
+        if run is None:
+            make_batched_loglike(bundle, NAMES)(theta)
+        else:
+            run()
     finally:
         splines.ppoly_eval_cuda = ppoly_eval_cuda
     results = {}
@@ -2923,15 +2964,14 @@ def evidence_profile(bundle, particles, card):
     from torch.profiler import ProfilerActivity, profile
     from victor_tpu_torch.sampling import nested, smc
     from victor_tpu_torch.sampling.priors import ParamSpace
+    from victor_tpu_torch.parallel.mesh import shard_map
     from victor_tpu_torch.sampling.targets import (make_unbounded_wrappers,
                                                    resolve_target)
 
     space = ParamSpace(QUAD_BLOCK)            # NAMES order, as `particles`
     tbl, loglike = resolve_target(bundle, None, None, gradient_free=True)
-    lnprior, batched = make_unbounded_wrappers(space, loglike, CHUNK)
-
-    def lnlike(y):
-        return batched(tbl, y)
+    lnprior, batched = make_unbounded_wrappers(space, loglike)
+    lnlike = shard_map(batched, tbl, None, None, CHUNK)   # as the samplers
     gen = torch.Generator(device='cuda')
     gen.manual_seed(9)
     y = space.to_unbounded(torch.as_tensor(particles, device='cuda'))
@@ -3390,6 +3430,233 @@ def adapter_checks(fit, esm_fit, cfg, esm_cfg, counted):
             'victor_tpu_torch.likelihoods.CCFLikelihood'))
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the scale-out layer
+# ---------------------------------------------------------------------------
+
+def cli_cards():
+    """`--cli-cards`: the CLI's `run --sampler smc` (its defaults) and
+    `--sampler hmc` (30 warmup and 30 samples) with one card visible and
+    with every card, in subprocesses. Each run's JSON must be the same
+    either way but for its seconds; returns False otherwise."""
+    import torch
+    stem = 'data/BOSS_DR12_CMASS_npz/CMASS_zobovVoids_reconRs10_0.43z0.7_' \
+        'medianRvcut'
+    every = ','.join(str(i) for i in range(torch.cuda.device_count()))
+    ok = True
+    for sampler, extra in (('smc', []),
+                           ('hmc', ['--warmup', '30', '--samples', '30'])):
+        outs = {}
+        for visible in ('0', every):
+            argv = [sys.executable, '-m', 'victor_tpu_torch', 'run',
+                    'configs/boss_sampling_config.yaml', '--sampler', sampler,
+                    '--set', 'model.input_model_data_file='
+                             f'{stem}_PatchyMean_model.npz',
+                    '--set', f'data.redshift_space_ccf.data_file={stem}'
+                             '_data.npz',
+                    '--set', 'data.covariance_matrix.data_file='
+                             f'{stem}_variable_D_covariance.npz'] + extra
+            proc = subprocess.run(
+                argv, cwd=REPO, capture_output=True, text=True, timeout=600,
+                env={**os.environ, 'CUDA_VISIBLE_DEVICES': visible})
+            if proc.returncode != 0:
+                print(proc.stdout + proc.stderr[-4000:], flush=True)
+                ok = False
+                continue
+            out = json.loads(proc.stdout)
+            outs[visible] = out
+            print(f'cli-cards: run --sampler {sampler}, cards {visible}: '
+                  f"{out['elapsed_s']} s", flush=True)
+        if len(outs) == 2:
+            same = [{k: v for k, v in o.items() if k != 'elapsed_s'}
+                    for o in outs.values()]
+            agree = same[0] == same[1]
+            print(f'cli-cards: {sampler} prints the same on one card and on '
+                  f'{every}: {agree}; one card / every card '
+                  f"{outs['0']['elapsed_s'] / outs[every]['elapsed_s']:.4f}",
+                  flush=True)
+            ok = ok and agree
+    return ok
+
+
+def start_probe(tmp):
+    """Phase 16c in processes of their own, started beside phase 12d as
+    phase 14 is: `python -m victor_tpu_torch.parallel.probe --device cuda
+    --backend gloo`, two processes on cuda:0 (NCCL refuses two ranks on one
+    card)."""
+    log = open(os.path.join(tmp, 'probe.log'), 'w+')
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'victor_tpu_torch.parallel.probe', '--device',
+         'cuda', '--backend', 'gloo', '--timeout', '300'],
+        cwd=REPO, stdout=log, stderr=subprocess.STDOUT, text=True)
+    return proc, log
+
+
+def finish_probe(started, timeout):
+    """Phase 16c: wait for the probe, print what it printed, and check its
+    summary: ok, two processes on the card through gloo, 3 ppoly_eval
+    launches in each process's sharded call. Returns the summary."""
+    proc, log = started
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise RuntimeError('chip_smoke: the two-process probe did not '
+                           f'finish within {timeout} s')
+    finally:
+        log.seek(0)
+        text = log.read().rstrip()
+        log.close()
+        print(text, flush=True)
+    check(proc.returncode == 0,
+          f'the two-process probe exited {proc.returncode}')
+    summary = json.loads(text.splitlines()[-1])
+    check(summary['ok'] and summary['n_processes'] == 2 and
+          (summary['device'], summary['backend']) == ('cuda', 'gloo'),
+          'two processes on cuda:0 through gloo: each shard of the BOSS batch '
+          'within 1e-12 of its unsharded values, gathered, and the '
+          'cross-process R-hat within 1e-12 of the single-process one')
+    check(summary['ppoly_eval_launches'] == 2 * 3,
+          f"the probe's ppoly_eval launches: {summary['ppoly_eval_launches']}"
+          ' (3 per process)')
+    return summary
+
+
+def accepted(chain):
+    """(S - 1, C) whether each chain moved at each recorded step."""
+    import numpy as np
+    return np.any(np.diff(chain, axis=0) != 0, axis=-1)
+
+
+def rel_err(got, want):
+    return max(float(((g - w) / w).abs().max()) for g, w in zip(got, want))
+
+
+def scale_out(bundle, card, probe_summary):
+    """Phase 16: the scale-out layer at full BOSS width, f64, exact modes
+    (a, b, d, e; c is `finish_probe`'s `probe_summary`). Returns the
+    kernels line's row of the sharded call, whose launches are those of
+    16b."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.likelihood.batched import (make_batched_loglike,
+                                                     make_sharded_loglike)
+    from victor_tpu_torch.parallel import make_mesh
+    from victor_tpu_torch.sampling import run_hmc_mcmc, run_smc
+    from victor_tpu_torch.utils.profiling import throughput, trace
+
+    t16 = time.perf_counter()
+    theta = draw_theta(SCALE_N, 16, 'cuda')
+    want = make_batched_loglike(bundle, NAMES, opts_kw=EXACT)(theta)
+    meshes = {'a': make_mesh(('walkers',)),
+              'b': make_mesh(('walkers',), devices=['cuda:0', 'cuda:0'])}
+    sharded = {}
+    for step, mesh in meshes.items():
+        fn = make_sharded_loglike(bundle, NAMES, mesh, opts_kw=EXACT)
+        ppoly.LAUNCHES = 0
+        got = fn(theta)
+        torch.cuda.synchronize()
+        launches = ppoly.LAUNCHES
+        err = rel_err(got, want)
+        check(err <= SCALE_TOL and got[0].device == theta.device,
+              f'16{step}: make_sharded_loglike over {mesh.size} shard(s) of '
+              f'{SCALE_N} points: max relative |d lnL|, |d chi2| against '
+              f'make_batched_loglike {err:.3e} (<= {SCALE_TOL:g}), gathered '
+              'on cuda:0')
+        check(launches == 3 * mesh.size,
+              f'16{step}: ppoly_eval launches {launches} (3 per chunk per '
+              f'shard: 1 chunk x {mesh.size} shard(s))')
+        sharded[step] = (fn, launches)
+    fn2, launches_b = sharded['b']
+    scale_result, _ = sampler_kernel_case(
+        bundle, theta, what=f'the 2-way sharded call of {SCALE_N} points',
+        run=lambda: fn2(theta))
+
+    mesh2 = meshes['b']
+    chains, warmup, draws = SCALE_MH
+    kw = dict(n_chains=chains, n_warmup=warmup, n_samples=draws, seed=3,
+              algorithm='mh', segment_steps=warmup + draws, device='cuda')
+    mh = [run_hmc_mcmc(bundle, QUAD_BLOCK, mesh=m, **kw)
+          for m in (None, make_mesh(('chains',), devices=['cuda:0'] * 2))]
+    err = float(np.max(np.abs(mh[1].chain / mh[0].chain - 1)))
+    check(np.array_equal(accepted(mh[1].chain), accepted(mh[0].chain))
+          and err <= SCALE_RUN_TOL,
+          f'16d: MH ({chains} chains, {warmup} + {draws} steps) on a 2-way '
+          f'mesh: the same accept decisions '
+          f'({int(accepted(mh[0].chain).sum())} moves), chains within '
+          f'{err:.3e} relative (<= {SCALE_RUN_TOL:g})')
+    n_part, moves = SCALE_SMC
+    smc = [run_smc(bundle, QUAD_BLOCK, n_particles=n_part, n_moves=moves,
+                   seed=1, device='cuda', mesh=m)
+           for m in (None, make_mesh(('particles',),
+                                     devices=['cuda:0'] * 2))]
+    dz = abs(smc[1].logz - smc[0].logz)
+    check(len(smc[1].betas) == len(smc[0].betas) and
+          dz <= SCALE_RUN_TOL * abs(smc[0].logz),
+          f'16d: SMC ({n_part} x {moves}) on a 2-way mesh: '
+          f'{len(smc[0].betas) - 1} stages as without, logZ '
+          f'{smc[1].logz:.6f} against {smc[0].logz:.6f} (|d| {dz:.3e})')
+
+    with tempfile.TemporaryDirectory() as tdir:
+        with trace(tdir) as prof:
+            fn2(theta)
+            torch.cuda.synchronize()
+        names = [f for f in os.listdir(tdir) if f.endswith('.json')]
+        with open(os.path.join(tdir, names[0])) as f:
+            text = f.read()
+    kernel_us = sum(e.device_time_total for e in prof.key_averages()
+                    if 'ppoly' in e.key)
+    check('ppoly_tiles' in text and kernel_us > 0,
+          f'16e: profiling.trace of one 2-way sharded call names the '
+          f'ppoly_eval kernel (ppoly_tiles), {kernel_us / 1e3:.4f} ms of it '
+          f'on the card')
+    timed_theta = draw_theta(SCALE_TIMED_N, 0, 'cuda')
+    batched = make_batched_loglike(bundle, NAMES, opts_kw=EXACT, chunk=CHUNK)
+    paths = {'batched': batched,
+             'sharded over 2 shards of cuda:0': make_sharded_loglike(
+                 bundle, NAMES, mesh2, opts_kw=EXACT, chunk=CHUNK),
+             f"sharded over every card ({meshes['a'].size})":
+                 make_sharded_loglike(bundle, NAMES, meshes['a'],
+                                      opts_kw=EXACT, chunk=CHUNK)}
+    rates = {label: [] for label in paths}
+    for label in list(paths) + list(paths)[::-1]:       # in turns
+        rates[label].append(SCALE_TIMED_N * throughput(
+            paths[label], timed_theta, reps=2)[1])
+    print(f'  16e (for information, {card}): {SCALE_TIMED_N} points, chunk '
+          f'{CHUNK}, exact modes, evals/s: ' + '; '.join(
+              f"{label} {np.mean(r):.1f} ({', '.join(f'{x:.1f}' for x in r)})"
+              for label, r in rates.items())
+          + f"; the probe {probe_summary['seconds']} s (its own clock), "
+          f"ppoly_eval launches 16a {sharded['a'][1]}, 16b {launches_b}, "
+          f"probe {probe_summary['ppoly_eval_launches']}", flush=True)
+    if meshes['a'].size > 1:
+        # the default (fast) modes are device-bound, the exact ones
+        # host-bound: only the former can gain from more cards
+        paths = {'batched': make_batched_loglike(bundle, NAMES, chunk=CHUNK),
+                 'every card': make_sharded_loglike(bundle, NAMES,
+                                                    meshes['a'], chunk=CHUNK)}
+        rates = {label: [] for label in paths}
+        for label in list(paths) + list(paths)[::-1]:
+            rates[label].append(SCALE_TIMED_N * throughput(
+                paths[label], timed_theta, reps=1)[1])
+        print(f'  16e (for information, {card}): default modes, '
+              f"{meshes['a'].size} cards, evals/s: " + '; '.join(
+                  f"{label} {np.mean(r):.1f} "
+                  f"({', '.join(f'{x:.1f}' for x in r)})"
+                  for label, r in rates.items()), flush=True)
+    print(f'  phase 16: {time.perf_counter() - t16:.2f} s in this process',
+          flush=True)
+    return kernel_row(f'ppoly_eval, sharded BOSS likelihood (16b: '
+                      f'{SCALE_N} points over a 2-way mesh of cuda:0, exact '
+                      f'modes; launches: 3 per shard)', 'ppoly_eval.cu',
+                      'victor_tpu/ops/splines.py:537', launches_b,
+                      scale_result, torch.float64)
+
+
 def class_surface(bundle, cfg, esm_bundle, esm_cfg):
     """Phase 15: the class surface on the card, adopting the bundles built
     already. Returns the kernels line's class-surface rows."""
@@ -3655,6 +3922,14 @@ def main() -> int:
     parser.add_argument('--class-surface', action='store_true',
                         help='build the kernels and run phase 15 (the class '
                              'surface) alone, printing its kernel rows')
+    parser.add_argument('--scale-out', action='store_true',
+                        help='build the kernels and run phase 16 (the '
+                             'scale-out layer) alone, printing its kernel '
+                             'row')
+    parser.add_argument('--cli-cards', action='store_true',
+                        help='build the kernels and time the CLI\'s run '
+                             '--sampler smc and hmc on one card and on '
+                             'every card (for several cards)')
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -3694,6 +3969,20 @@ def main() -> int:
             build_tables(esm_cfg['model'], esm_cfg['data'], device='cuda'),
             esm_cfg)
         print(json.dumps({'kernels': rows}), flush=True)
+        return 0
+    if args.cli_cards:
+        build_kernels()
+        return 0 if cli_cards() else 1
+    if args.scale_out:
+        import tempfile
+        build_kernels()
+        cfg = load_config()
+        with tempfile.TemporaryDirectory() as tmp:
+            print('scale-out (16c): the two-process probe', flush=True)
+            probe_summary = finish_probe(start_probe(tmp), timeout=300)
+        row = scale_out(build_tables(cfg['model'], cfg['data'],
+                                     device='cuda'), card, probe_summary)
+        print(json.dumps({'kernels': [row]}), flush=True)
         return 0
 
     # ---- 2. build the kernels ----
@@ -3831,6 +4120,7 @@ def main() -> int:
         child = start_nuts_child(tmp)
         fit_child = start_fit_cli(tmp)
         evidence = start_evidence_child(evidence_tmp)
+        probe = start_probe(evidence_tmp)
         try:
             hmc_launches, leapfrogs, hmc_s, hmc_draws, hmc_rm1 = hmc_cli(
                 cfg, tmp)
@@ -3842,8 +4132,11 @@ def main() -> int:
             print('evidence (14a-e, g): SMC, NS, post, tension and analyze in '
                   'a process of their own', flush=True)
             ev = finish_evidence_child(evidence, timeout=600)
+            print('scale-out (16c): the two-process probe, in processes of '
+                  'their own', flush=True)
+            probe_summary = finish_probe(probe, timeout=300)
         finally:
-            for proc in (child, fit_child[0], evidence[0]):
+            for proc in (child, fit_child[0], evidence[0], probe[0]):
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
@@ -3892,6 +4185,11 @@ def main() -> int:
     # ---- 15. the class surface ----
     class_rows = class_surface(bundle, cfg, esm_bundle, esm_cfg)
 
+    # ---- 16. the scale-out layer ----
+    print('scale-out: make_sharded_loglike, the probe, mesh runs, the trace',
+          flush=True)
+    scale_row = scale_out(bundle, card, probe_summary)
+
     f64 = torch.float64
     print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all '
           f'({card})', flush=True)
@@ -3934,7 +4232,8 @@ def main() -> int:
                    "'fused', 1024 particles, chunk of 64)",
                    'dispersion_final.cu',
                    'victor_tpu/ops/dispersion_pallas.py:32', cmp_launches,
-                   cmp_result, f64)] + class_rows}), flush=True)
+                   cmp_result, f64)] + class_rows + [scale_row]}),
+          flush=True)
     evidence_dir.cleanup()
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

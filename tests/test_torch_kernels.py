@@ -11,6 +11,8 @@ Tests marked `cuda` need a CUDA device and nvcc, and skip without a card.
 The helpers here make the inputs of tests/test_torch_splines.py too.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -914,3 +916,127 @@ def test_class_surface_on_the_card_launches_the_kernels(cuda_device):
     want = cpu.theory_multipoles(cpu.s, golden)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_sharded_likelihood_on_the_card_launches_per_shard(cuda_device):
+    """make_sharded_loglike over a 2-way mesh that names the card twice:
+    3 ppoly_eval launches per shard, the values of the batched call on the
+    card (1e-12) and of the CPU port (1e-9), and a gradient through the
+    gather that launches the backward kernel 3 times per shard."""
+    from victor_tpu_torch.io.tables import build_tables
+    from victor_tpu_torch.likelihood.batched import (make_batched_loglike,
+                                                     make_sharded_loglike)
+    from victor_tpu_torch.parallel import make_mesh
+    cfg = _boss_config_npz()
+    names = ['fsigma8', 'beta', 'sigma_v', 'epsilon']
+    exact = {'streaming_eval': 'exact', 'beta_covariance': 'exact'}
+    rng = np.random.default_rng(23)
+    theta = np.column_stack([
+        rng.uniform(0.3, 0.6, 8), rng.uniform(0.25, 0.55, 8),
+        rng.uniform(250.0, 450.0, 8), rng.uniform(0.9, 1.1, 8)])
+    card = build_tables(cfg['model'], cfg['data'], n_mu=20, n_v=10,
+                        device=cuda_device)
+    cpu = build_tables(cfg['model'], cfg['data'], n_mu=20, n_v=10,
+                       device='cpu')
+    mesh = make_mesh(('walkers',), devices=[cuda_device] * 2)
+    sharded = make_sharded_loglike(card, names, mesh, opts_kw=exact)
+    before = ppoly.LAUNCHES
+    got = sharded(theta)
+    torch.cuda.synchronize()
+    assert ppoly.LAUNCHES == before + 6
+    want_card = make_batched_loglike(card, names, opts_kw=exact)(theta)
+    want_cpu = make_batched_loglike(cpu, names, opts_kw=exact)(theta)
+    for g, wc, wh in zip(got, want_card, want_cpu):
+        assert g.device.type == 'cuda'
+        np.testing.assert_allclose(g.cpu().numpy(), wc.cpu().numpy(),
+                                   rtol=1e-12)
+        np.testing.assert_allclose(g.cpu().numpy(), wh.numpy(), rtol=1e-9)
+    t = torch.tensor(theta, device=cuda_device, requires_grad=True)
+    before = ppoly.LAUNCHES_BWD
+    g_sh, = torch.autograd.grad(make_sharded_loglike(
+        card, names, mesh, gradient_free=False)(t)[0].sum(), t)
+    torch.cuda.synchronize()
+    assert ppoly.LAUNCHES_BWD == before + 6
+    g_b, = torch.autograd.grad(make_batched_loglike(
+        card, names, gradient_free=False)(t)[0].sum(), t)
+    np.testing.assert_allclose(g_sh.cpu().numpy(), g_b.cpu().numpy(),
+                               rtol=1e-10)
+
+
+@pytest.mark.cuda
+def test_sharded_joint_likelihood_across_cards(cuda_device, tmp_path):
+    """make_sharded_joint_loglike over a mesh of every card, each a distinct
+    device (skips with fewer than two): JointBundle.to replicates the two
+    quantiles' tables and the joint covariance stack onto every card, each
+    card launches ppoly_eval on its own slice, and the values and the
+    gradient through the gather are those of the batched call on cuda:0
+    (1e-12, 1e-10)."""
+    import copy
+
+    from victor_tpu_torch.io.loaders import load_key_value_file
+    from victor_tpu_torch.likelihood.multiquantile import (
+        build_joint_tables, make_batched_joint_loglike,
+        make_sharded_joint_loglike)
+    from victor_tpu_torch.parallel import make_mesh, replicate
+    n_dev = torch.cuda.device_count()
+    if n_dev < 2:
+        pytest.skip('needs two CUDA devices or more')
+    cfg = _boss_config_npz()
+    data = cfg['data']
+    cd = load_key_value_file(os.path.join(
+        data['dir'], data['covariance_matrix']['data_file']))
+    covs = np.asarray(cd['covmat'])
+    n_b, D = covs.shape[:2]
+    stack = np.zeros((n_b, 2 * D, 2 * D))
+    stack[:, :D, :D] = stack[:, D:, D:] = covs
+    cov_path = str(tmp_path / 'joint_cov.npz')
+    np.savez(cov_path, covmat=stack, beta=np.asarray(cd['beta']))
+    q = {'model': copy.deepcopy(cfg['model']),
+         'data': {'redshift_space_ccf':
+                  copy.deepcopy(data['redshift_space_ccf']),
+                  'dir': data['dir']}}
+    jb = build_joint_tables({
+        'quantiles': [q, copy.deepcopy(q)],
+        'covariance_matrix': {'data_file': cov_path, 'cov_key': 'covmat',
+                              'fixed_beta': False, 'beta_key': 'beta'},
+        'likelihood': copy.deepcopy(data['likelihood'])},
+        device=cuda_device)
+    names = ['fsigma8', 'beta', 'sigma_v', 'epsilon', 'sigma_v__q1']
+    rng = np.random.default_rng(29)
+    n = 8 * n_dev
+    theta = np.column_stack([
+        rng.uniform(0.3, 0.6, n), rng.uniform(0.25, 0.55, n),
+        rng.uniform(250.0, 450.0, n), rng.uniform(0.9, 1.1, n),
+        rng.uniform(300.0, 420.0, n)])
+    mesh = make_mesh(('walkers',))
+    cards = [torch.device('cuda', i) for i in range(n_dev)]
+    replicas = replicate(jb, mesh)
+    assert list(replicas) == cards
+    for d, r in replicas.items():
+        assert r.icov.device == d and r.cov_pencil.device == d
+        assert all(b.tables.iaH.device == d for b in r.bundles)
+
+    batched = make_batched_joint_loglike(jb, names)
+    before = ppoly.LAUNCHES
+    want = batched(theta)
+    torch.cuda.synchronize()
+    per_call = ppoly.LAUNCHES - before
+    sharded = make_sharded_joint_loglike(jb, names, mesh)
+    before = ppoly.LAUNCHES
+    got = sharded(theta)
+    for d in cards:
+        torch.cuda.synchronize(d)
+    assert ppoly.LAUNCHES - before == n_dev * per_call
+    for g, w in zip(got, want):
+        assert g.device == cards[0] and g.shape == (n,)
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-12)
+
+    t = torch.tensor(theta, device=cuda_device, requires_grad=True)
+    g_sh, = torch.autograd.grad(make_sharded_joint_loglike(
+        jb, names, mesh, gradient_free=False)(t)[0].sum(), t)
+    g_b, = torch.autograd.grad(make_batched_joint_loglike(
+        jb, names, gradient_free=False)(t)[0].sum(), t)
+    np.testing.assert_allclose(g_sh.cpu().numpy(), g_b.cpu().numpy(),
+                               rtol=1e-10)

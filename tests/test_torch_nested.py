@@ -24,6 +24,7 @@ from victor_tpu.sampling import nested as jnested
 from victor_tpu.sampling import targets as jtargets
 from victor_tpu.sampling.priors import ParamSpace as JParamSpace
 from victor_tpu_torch.errors import InputError
+from victor_tpu_torch.parallel.mesh import shard_map
 from victor_tpu_torch.sampling import nested as tnested
 from victor_tpu_torch.sampling import priors as tpriors
 from victor_tpu_torch.sampling import targets as ttargets
@@ -124,8 +125,8 @@ def test_step_matches_victor_tpu(short_runs, boss):
     noise, _ = replay_step_noise(key, n_batch, len(block), n_steps)
     ttbl, loglike = ttargets.resolve_target(tt, None, None, True)
     lnprior, batched = ttargets.make_unbounded_wrappers(
-        tpriors.ParamSpace(block), loglike, chunk)
-    got = tnested._step(lambda y: batched(ttbl, y), lnprior,
+        tpriors.ParamSpace(block), loglike)
+    got = tnested._step(shard_map(batched, ttbl, None, None, chunk), lnprior,
                         *(_t(jst[k]) for k in ('y', 'lnl', 'lnpri', 'aux')),
                         _t(w), _t(start_idx), _t(dead_idx), float(threshold),
                         scale, noise)
@@ -149,7 +150,7 @@ def test_host_bookkeeping_bit_for_bit(monkeypatch):
     theta0, key = prior_draw(BLOCK, 7, 128)
     state = {'key': key}
 
-    def wrappers(space, loglike, chunk):
+    def wrappers(space, loglike):
         def batched(tbl, y):
             lnl, aux = jfns['init'](jnp.zeros(()), _j(y))
             return _t(lnl), _t(aux)

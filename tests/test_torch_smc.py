@@ -30,6 +30,7 @@ from victor_tpu.sampling import targets as jtargets
 from victor_tpu.sampling.priors import ParamSpace as JParamSpace
 from victor_tpu_torch.errors import InputError
 from victor_tpu_torch.io.tables import bundle_from_arrays, tables_to_arrays
+from victor_tpu_torch.parallel.mesh import shard_map
 from victor_tpu_torch.sampling import priors as tpriors
 from victor_tpu_torch.sampling import smc as tsmc
 from victor_tpu_torch.sampling import targets as ttargets
@@ -192,10 +193,9 @@ def test_unbounded_wrappers_match_victor_tpu(which, boss):
     ttbl, tloglike = ttargets.resolve_target(tt, None, None, True)
     _, jprior, jbatched = jtargets.make_unbounded_wrappers(jspace, jloglike,
                                                            chunk)
-    tprior, tbatched = ttargets.make_unbounded_wrappers(tspace, tloglike,
-                                                        chunk)
+    tprior, tbatched = ttargets.make_unbounded_wrappers(tspace, tloglike)
     jl, ja = jbatched(jtbl, jnp.asarray(y))
-    tl, ta = tbatched(ttbl, _t(y))
+    tl, ta = shard_map(tbatched, ttbl, None, None, chunk)(_t(y))
     assert ta.shape == (37, 1)
     for got, want in ((tl, jl), (ta, ja),
                       (tprior(_t(y)), jax.vmap(jprior)(jnp.asarray(y)))):
@@ -302,8 +302,8 @@ def test_stage_matches_victor_tpu(short_runs, boss):
     noise, _ = replay_stage_noise(key, n, len(block), N_MOVES)
     ttbl, loglike = ttargets.resolve_target(tt, None, None, True)
     lnprior, batched = ttargets.make_unbounded_wrappers(
-        tpriors.ParamSpace(block), loglike, chunk)
-    got = tsmc._stage(lambda y: batched(ttbl, y), lnprior,
+        tpriors.ParamSpace(block), loglike)
+    got = tsmc._stage(shard_map(batched, ttbl, None, None, chunk), lnprior,
                       *(_t(jst[k]) for k in ('y', 'lnl', 'lnpri', 'aux')),
                       _t(w), beta_new, noise)
     for name, g, wnt in zip(('y', 'lnl', 'lnpri', 'aux'), got[:4], want[:4]):
@@ -329,7 +329,7 @@ def test_host_bookkeeping_bit_for_bit(monkeypatch):
     theta0, key = prior_draw(BLOCK, 7, 128)
     state = {'key': key}
 
-    def wrappers(space, loglike, chunk):
+    def wrappers(space, loglike):
         def batched(tbl, y):
             lnl, aux = jfns['init'](jnp.zeros(()), _j(y))
             return _t(lnl), _t(aux)

@@ -86,6 +86,41 @@ def _has_data(cfg):
     return 'data' in cfg or 'quantiles' in cfg
 
 
+def _divisible_mesh(axis_name, count, device='cuda'):
+    """A one-axis mesh over every CUDA device when there is more than one
+    and `count` shards evenly over them; None otherwise, and the run stays
+    on `device` alone (one card, the CPU, or a count that does not divide:
+    the sampler's state always lives on `device`, and the mesh shards only
+    its likelihood).
+
+    Only the particle paths (smc, ns, analyze, tension, compare) ask for
+    one. The chain samplers (hmc, nuts, mh, the ensemble) stay on one card:
+    their step is host-bound, and a 60-step `run --sampler hmc` over four
+    H100s took 3.5 times as long as on one; `mesh=` stays open to callers
+    of run_hmc_mcmc and run_mcmc."""
+    import torch
+
+    from .parallel import make_mesh
+    n_dev = torch.cuda.device_count()
+    if torch.device(device).type == 'cuda' and n_dev > 1 \
+            and count % n_dev == 0:
+        return make_mesh((axis_name,))
+    return None
+
+
+def _checkpoint_count(ckpt, key, count):
+    """The sample count a resumed run takes from its checkpoint (the rows of
+    `key`), or `count`: a mesh must be sized for the count that runs."""
+    import os
+
+    import numpy as np
+    if ckpt and os.path.isfile(ckpt):
+        with np.load(ckpt, allow_pickle=False) as z:
+            if key in z.files:
+                return int(z[key].shape[0])
+    return count
+
+
 def _json_sanitize(obj):
     """Map non-finite floats to None: json.dumps emits bare NaN/Infinity
     (invalid strict JSON) for e.g. the undefined R-hat of a 2-draw run."""
@@ -256,12 +291,18 @@ def cmd_run(args):
 
     if kind == 'smc':
         from .sampling import run_smc
+        n_particles = int(sampler.get('n_particles', args.particles))
+        if args.resume:
+            # run_smc takes the checkpoint's particle count; the mesh must
+            # be sized for THAT count
+            n_particles = _checkpoint_count(ckpt, 'y', n_particles)
         result = run_smc(
             bundle, params_block,
-            n_particles=int(sampler.get('n_particles', args.particles)),
+            n_particles=n_particles,
             n_moves=int(sampler.get('n_moves', args.moves)),
             ess_target=float(sampler.get('ess_target', 0.5)),
             seed=seed, checkpoint=ckpt, resume=args.resume, output=out_root,
+            mesh=_divisible_mesh('particles', n_particles, args.device),
             device=args.device)
         out = {'sampler': 'smc', 'n_particles': len(result.particles),
                'n_stages': len(result.betas) - 1,
@@ -278,13 +319,19 @@ def cmd_run(args):
     if kind == 'ns':
         from .sampling import run_nested
         n_batch = sampler.get('n_batch', args.ns_batch)
+        n_live = int(sampler.get('n_live', args.live))
+        if args.resume:
+            # run_nested resumes the checkpoint's live-point count; the mesh
+            # must be sized for THAT count (as on the smc path)
+            n_live = _checkpoint_count(ckpt, 'y', n_live)
         result = run_nested(
             bundle, params_block,
-            n_live=int(sampler.get('n_live', args.live)),
+            n_live=n_live,
             n_batch=None if n_batch is None else int(n_batch),
             n_steps=int(sampler.get('n_steps', args.ns_steps)),
             dlogz=float(sampler.get('dlogz', args.dlogz)),
             seed=seed, checkpoint=ckpt, resume=args.resume, output=out_root,
+            mesh=_divisible_mesh('live', n_live, args.device),
             device=args.device)
         out = {'sampler': 'ns', 'n_live': result.n_live,
                'n_iterations': result.n_iter,
@@ -305,12 +352,10 @@ def cmd_run(args):
             int(sampler.get('n_warmup', warmup))
         n_samples = args.samples if args.samples is not None else \
             int(sampler.get('n_samples', samples))
-        if args.resume and ckpt and os.path.isfile(ckpt):
+        if args.resume:
             # a resumed run keeps the checkpoint's chain count, and the
             # GetDist files are split by it
-            with np.load(ckpt, allow_pickle=False) as z:
-                if 'hmc_q' in z.files:
-                    n_chains = int(z['hmc_q'].shape[0])
+            n_chains = _checkpoint_count(ckpt, 'hmc_q', n_chains)
         result = run_hmc_mcmc(
             bundle, params_block,
             n_chains=n_chains,
@@ -690,7 +735,10 @@ def cmd_analyze(args):
     t0 = time.time()
     sres = run_smc(bundle, params_block, n_particles=args.particles,
                    n_moves=args.moves, seed=args.seed,
-                   output=os.path.join(outdir, 'chains'), device=args.device)
+                   output=os.path.join(outdir, 'chains'),
+                   mesh=_divisible_mesh('particles', args.particles,
+                                        args.device),
+                   device=args.device)
     t_smc = time.time() - t0
 
     ndata, ndof, p_val, derived = _map_report_stats(bundle, mres)
@@ -876,7 +924,10 @@ def cmd_tension(args):
     res = run_tension(_build_bundle(cfg_a, args.device),
                       _build_bundle(cfg_b, args.device),
                       params_block, n_particles=args.particles,
-                      n_moves=args.moves, seed=args.seed, device=args.device)
+                      n_moves=args.moves, seed=args.seed,
+                      mesh=_divisible_mesh('particles', args.particles,
+                                           args.device),
+                      device=args.device)
     print(json.dumps(_json_sanitize({
         'log_evidence_ratio': round(res.logr, 3),
         'log_evidence_ratio_se': round(res.logr_se, 3),
@@ -926,7 +977,10 @@ def cmd_compare(args):
             sys.exit(f'{path} must contain a params: block')
         res = run_smc(_build_bundle(cfg, args.device), params_block,
                       n_particles=args.particles, n_moves=args.moves,
-                      seed=args.seed + i, device=args.device)
+                      seed=args.seed + i,
+                      mesh=_divisible_mesh('particles', args.particles,
+                                           args.device),
+                      device=args.device)
         results.append((label, path, sets, res))
 
     (_, pa, sa, ra), (_, pb, sb, rb) = results
@@ -1248,6 +1302,8 @@ def main(argv=None):
 
     args = p.parse_args(argv)
     _check_device(args.device)
+    from .utils.profiling import enable_persistent_cache
+    enable_persistent_cache()
     args.fn(args)
 
 

@@ -6,6 +6,9 @@ place of `jax.vmap`; `chunk` bounds peak memory, since one f64 (n_v, q)
 intermediate is 1.2 MB per parameter point at BOSS size. Every model and
 option of the theory layer runs through it, in every perf mode.
 
+`make_sharded_loglike` splits the batch over a device mesh
+(parallel/mesh.py), the port of `victor_tpu/likelihood/batched.py:138-175`.
+
 Typical use::
 
     bundle = build_tables(cfg['model'], cfg['data'])      # on the card
@@ -22,6 +25,7 @@ import torch
 
 from ..config import resolve_perf_mode
 from ..io.tables import CCFModelBundle
+from ..parallel.mesh import _first_tensor, chunked, shard_devices, shard_map
 from .core import log_likelihood
 
 
@@ -63,31 +67,14 @@ def make_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
     return fn
 
 
-def chunked(run, chunk: Optional[int]):
-    """`run(theta) -> tuple of (N,) tensors`, evaluated in chunks of `chunk`
-    rows when the batch is larger; the last chunk is padded with copies of
-    the first point and the pad rows are discarded, so every chunk has the
-    same shape. None evaluates the whole batch at once."""
-    def fn(theta):
-        n = theta.shape[0]
-        if not chunk or n <= chunk:
-            return run(theta)
-        n_chunks = -(-n // chunk)
-        pad = n_chunks * chunk - n
-        if pad:
-            theta = torch.cat([theta, theta[:1].expand(pad, -1)])
-        outs = [run(theta[i * chunk:(i + 1) * chunk]) for i in range(n_chunks)]
-        return tuple(torch.cat(o)[:n] for o in zip(*outs))
-    return fn
-
-
 def make_batched_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
                          base_params: Optional[Dict] = None,
                          opts_kw: Optional[Dict] = None,
                          fit_kw: Optional[Dict] = None,
                          chunk: Optional[int] = None,
                          gradient_free: bool = True):
-    """Batched log-likelihood: theta (N, P) -> ((N,), (N,)).
+    """Batched log-likelihood: theta (N, P) -> ((N,), (N,)), on the bundle's
+    device: make_sharded_loglike with no mesh.
 
     `chunk` evaluates batches larger than `chunk` in chunks of that size
     (`chunked`). None evaluates the whole batch at once.
@@ -97,14 +84,61 @@ def make_batched_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
     dispersion_final='fast' and beta_covariance='factored'. Explicit values
     in `opts_kw` are kept.
     """
+    return make_sharded_loglike(bundle, param_names, None,
+                                base_params=base_params, opts_kw=opts_kw,
+                                fit_kw=fit_kw, gradient_free=gradient_free,
+                                chunk=chunk)
+
+
+def sharded_call(run, tables, dtype, mesh, axis, chunk):
+    """theta -> parallel.mesh.shard_map(run, tables, mesh, axis,
+    chunk)(theta): theta (N, P) as `dtype` on the first device the axes
+    span (with no mesh, the tables' device), N divisible by their device
+    count (as a sharded jax.device_put requires); the results are gathered
+    on that device."""
+    devices = [_first_tensor(tables).device] if mesh is None else \
+        shard_devices(mesh, axis)
+    fn = shard_map(run, tables, mesh, axis, chunk)
+
+    def call(theta):
+        theta = torch.as_tensor(theta, dtype=dtype, device=devices[0])
+        if theta.shape[0] % len(devices):
+            raise ValueError(f'a batch of {theta.shape[0]} points does not '
+                             f'split evenly over {len(devices)} devices')
+        return fn(theta)
+
+    return call
+
+
+def make_sharded_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
+                         mesh, axis='walkers',
+                         base_params: Optional[Dict] = None,
+                         opts_kw: Optional[Dict] = None,
+                         fit_kw: Optional[Dict] = None,
+                         gradient_free: bool = True,
+                         chunk: Optional[int] = None):
+    """Batched log-likelihood sharded over a device mesh (parallel.Mesh):
+    theta (N, P) -> ((N,), (N,)).
+
+    The tables are replicated once per distinct device of `mesh`, now, not
+    per call. theta is split into equal slices along the mesh axis `axis`
+    (a name or a tuple of names; N must divide by the device count they
+    span), every slice is evaluated on its device in chunks of `chunk`
+    rows (as make_batched_loglike does; chunk k of every slice is issued
+    before chunk k + 1 of any, and all before any is read back), and (lnL,
+    chi2) are gathered on the first device; gradients flow back to every
+    shard. Perf modes resolve as in make_batched_loglike. The tables and
+    the mesh must lie on one device type. With `mesh` None the batch is
+    evaluated on the bundle's device (make_batched_loglike).
+    """
     opts = resolve_perf_mode(bundle.theory_opts.replace(**(opts_kw or {})),
                              gradient_free)
     fit = bundle.fit_opts.replace(**(fit_kw or {}))
     names = tuple(param_names)
 
-    def run(th):
-        return log_likelihood(bundle.tables, bundle.spec, opts, fit,
-                              theta_to_params(th, names, base_params))
+    def run(tables, theta):
+        return log_likelihood(tables, bundle.spec, opts, fit,
+                              theta_to_params(theta, names, base_params))
 
-    fn = chunked(run, chunk)
-    return lambda theta: fn(_as_theta(bundle, theta))
+    return sharded_call(run, bundle.tables, bundle.tables.iaH.dtype, mesh,
+                        axis, chunk)

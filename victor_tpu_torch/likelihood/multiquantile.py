@@ -48,7 +48,7 @@ from ..io.loaders import load_key_value_file
 from ..io.tables import (CCFModelBundle, _build_arrays, _pencil_precompute,
                          _tables_from_arrays, _target_device)
 from ..models.ccf_theory import theory_vector
-from .batched import chunked, theta_to_params
+from .batched import sharded_call, theta_to_params
 from .core import (_apply_form, _factored_chi_squared, _interp_matrix_stack,
                    _like_factor, _pencil_like_factor, multipole_datavector)
 
@@ -68,6 +68,16 @@ class JointBundle:
     # of a (D, D) slogdet as D = N*60 grows with the quantile count
     cov_logdet: Optional[torch.Tensor] = None     # (n_b,)
     cov_pencil: Optional[torch.Tensor] = None     # (n_b, D)
+
+    def to(self, device, dtype) -> 'JointBundle':
+        """A copy with every tensor on `device` as `dtype`."""
+        def move(t):
+            return None if t is None else t.to(device, dtype)
+        return dataclasses.replace(
+            self, bundles=tuple(b.to(device, dtype) for b in self.bundles),
+            cov=move(self.cov), icov=move(self.icov),
+            beta_cov=move(self.beta_cov), cov_logdet=move(self.cov_logdet),
+            cov_pencil=move(self.cov_pencil))
 
 
 def build_joint_tables(joint: Dict, base_dir: str = '', device='cuda',
@@ -285,23 +295,44 @@ def make_batched_joint_loglike(jb: JointBundle, param_names: Sequence[str],
                                fit_kw: Optional[Dict] = None,
                                chunk: Optional[int] = None,
                                gradient_free: bool = True):
-    """Batched joint likelihood: theta (N, P) -> ((N,), (N,)).
+    """Batched joint likelihood: theta (N, P) -> ((N,), (N,)), on the
+    bundle's device: make_sharded_joint_loglike with no mesh.
 
     `chunk` bounds peak memory as in batched.make_batched_loglike: a joint
     fit's per-point working set is n_quantiles times the single-dataset
     one. `gradient_free=True` resolves 'auto' perf modes to the validated
     fast modes (targets.resolve_perf_kw)."""
+    return make_sharded_joint_loglike(jb, param_names, None,
+                                      base_params=base_params,
+                                      opts_kw=opts_kw, fit_kw=fit_kw,
+                                      gradient_free=gradient_free,
+                                      chunk=chunk)
+
+
+def make_sharded_joint_loglike(jb: JointBundle, param_names: Sequence[str],
+                               mesh, axis='walkers',
+                               base_params: Optional[Dict] = None,
+                               opts_kw: Optional[Dict] = None,
+                               fit_kw: Optional[Dict] = None,
+                               gradient_free: bool = True,
+                               chunk: Optional[int] = None):
+    """The joint likelihood with the batch sharded over a device mesh: the
+    joint analogue of batched.make_sharded_loglike. The per-quantile tables
+    and the joint covariance stack are replicated once per distinct device
+    of `mesh`; theta (N, P) is split into equal slices along `axis` (a mesh
+    axis name or a tuple of them), N divisible by the device count the axes
+    span; each device contracts its slice against its replica in chunks of
+    `chunk` rows, issued in turn across the devices, and (lnL, chi2) are
+    gathered on the first of those devices. With `mesh` None the batch is
+    evaluated on the bundle's device (make_batched_joint_loglike)."""
     from ..sampling.targets import resolve_perf_kw
 
     opts_kw = resolve_perf_kw([b.theory_opts for b in jb.bundles],
                               opts_kw, gradient_free)
     names = tuple(param_names)
-    ref = jb.icov
 
-    def run(theta):
+    def run(tbl, theta):
         return joint_log_likelihood(
-            jb, theta_to_params(theta, names, base_params), opts_kw, fit_kw)
+            tbl, theta_to_params(theta, names, base_params), opts_kw, fit_kw)
 
-    fn = chunked(run, chunk)
-    return lambda theta: fn(torch.as_tensor(theta, dtype=ref.dtype,
-                                            device=ref.device))
+    return sharded_call(run, jb, jb.icov.dtype, mesh, axis, chunk)

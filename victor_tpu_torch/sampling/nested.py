@@ -147,7 +147,7 @@ def run_nested(bundle, params_block: Dict, n_live: int = 1024,
                checkpoint: Optional[str] = None, resume: bool = False,
                checkpoint_every: int = 1,
                output: Optional[str] = None,
-               aux_names: Optional[list] = None,
+               aux_names: Optional[list] = None, mesh=None, mesh_axis=None,
                device='cuda') -> NestedResult:
     """Estimate the evidence and sample the posterior by nested sampling.
 
@@ -171,8 +171,16 @@ def run_nested(bundle, params_block: Dict, n_live: int = 1024,
     ~50-100 iterations where that is a few MB, but a long run with small
     n_batch should raise `checkpoint_every` (resume then replays at most
     that many iterations, still bit-identically).
+
+    `mesh`: optional parallel.Mesh; every likelihood batch is split along
+    `mesh_axis` (default: all mesh axes), each slice evaluated on its
+    device against a replica of the tables in chunks of `chunk` (issued in
+    turn across the devices) and gathered on `device`. The live points,
+    the step and the generator stay on `device`, so the draws do not
+    depend on the mesh.
     """
     from . import chains as chain_io
+    from ..parallel.mesh import shard_map
     from .runner import _check_device
     from .smc import load_state
     from .targets import (is_callable_target, make_unbounded_wrappers,
@@ -184,7 +192,7 @@ def run_nested(bundle, params_block: Dict, n_live: int = 1024,
     # fast modes (config.resolve_perf_mode; explicit opts are the opt-out)
     tables_arg, loglike = resolve_target(bundle, opts_kw, fit_kw,
                                          gradient_free=True)
-    _check_device(tables_arg, device)
+    _check_device(tables_arg, device, mesh)
 
     # The checkpoint is loaded BEFORE the n_batch default/validation so a
     # resumed run inherits the checkpoint's shrinkage schedule: n_live comes
@@ -227,10 +235,9 @@ def run_nested(bundle, params_block: Dict, n_live: int = 1024,
     if checkpoint_every < 1:
         raise ValueError('checkpoint_every must be >= 1')
 
-    lnprior, batched_lnlike = make_unbounded_wrappers(space, loglike, chunk)
-
-    def lnlike(y):
-        return batched_lnlike(tables_arg, y)
+    # shard_map chunks the batch (in turns across a mesh's devices)
+    lnprior, batched_lnlike = make_unbounded_wrappers(space, loglike)
+    lnlike = shard_map(batched_lnlike, tables_arg, mesh, mesh_axis, chunk)
 
     t0 = time.time()
     n_like = 0

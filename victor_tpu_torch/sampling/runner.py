@@ -10,8 +10,12 @@ state every segment; export GetDist-format chains.
 
 `run_hmc_mcmc` runs HMC (the default, sampling/hmc.py), NUTS
 (sampling/nuts.py) or the gradient-free MH (sampling/mh.py). The chains live
-on one card (`device`, the card unless 'cpu' is asked for); victor_tpu's
-`mesh=` sharding has no counterpart here.
+on `device` (the card unless 'cpu' is asked for). With `mesh=` (a
+parallel.Mesh), as in victor_tpu, the likelihood of the chains or walkers
+is sharded over the mesh (parallel.mesh.shard_map): the tables are
+replicated on its devices and each evaluates its slice, while the chain
+state and the generator stay on `device`, so the draws do not depend on the
+mesh.
 """
 
 from __future__ import annotations
@@ -62,10 +66,17 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def _check_device(tables_arg, device: torch.device) -> None:
-    """The target's tensors must live on the sampler's device: no silent
-    copy between the card and the host."""
+def _check_device(tables_arg, device: torch.device, mesh=None) -> None:
+    """The target's tensors, and the mesh that shards it, must live on the
+    sampler's device type: no silent copy between the card and the host.
+    The tables are replicated across the mesh's devices by the sampler."""
     from ..likelihood.multiquantile import JointBundle
+    if mesh is not None:
+        kinds = {d.type for d in mesh.devices.flat}
+        if kinds != {device.type}:
+            raise InputError(
+                f'the mesh spans {sorted(kinds)} devices but the sampler runs '
+                f'on {device}; build the mesh on {device.type} devices')
     if isinstance(tables_arg, tuple):
         for t in tables_arg:
             _check_device(t, device)
@@ -84,18 +95,21 @@ def _check_device(tables_arg, device: torch.device) -> None:
 def _posterior_parts(bundle, space: ParamSpace,
                      opts_kw: Optional[Dict] = None,
                      fit_kw: Optional[Dict] = None,
-                     gradient_free: bool = True):
+                     gradient_free: bool = True, mesh=None, mesh_axis=None):
     """(logpost(coords) -> (lnp, aux), tables_arg) through the shared
-    targets.resolve_target dispatch."""
+    targets.resolve_target dispatch; with a mesh, the likelihood's batch is
+    sharded over it (parallel.mesh.shard_map)."""
+    from ..parallel.mesh import shard_map
     from .targets import resolve_target
 
     # the ensemble moves are gradient-free, so 'auto' perf modes resolve
     # fast by default
     tables_arg, loglike = resolve_target(bundle, opts_kw, fit_kw,
                                          gradient_free)
-    logpost = ensemble.make_logpost(
-        space.log_prior,
-        lambda coords: loglike(tables_arg, space.full_params(coords)))
+    loglike_coords = shard_map(
+        lambda tbl, coords: loglike(tbl, space.full_params(coords)),
+        tables_arg, mesh, mesh_axis)
+    logpost = ensemble.make_logpost(space.log_prior, loglike_coords)
     return logpost, tables_arg
 
 
@@ -182,7 +196,7 @@ def run_hmc_mcmc(bundle, params_block: Dict,
                  burn_in_fraction: float = 0.0, segment_steps: int = 100,
                  algorithm: str = 'hmc', max_depth: int = 8, covmat=None,
                  rhat_stop: Optional[float] = None,
-                 device='cuda') -> MCMCResult:
+                 mesh=None, mesh_axis=None, device='cuda') -> MCMCResult:
     """Adaptive-chain sampling: 'hmc' (the default; dense-mass HMC with
     jittered trajectories of about `n_leapfrog` steps, sampling/hmc.py),
     'nuts' (dynamic trajectories of up to 2^max_depth leapfrogs,
@@ -213,7 +227,15 @@ def run_hmc_mcmc(bundle, params_block: Dict,
     each post-warmup segment with >= 50 recorded draws, stop once split
     max(R-1) < rhat_stop. n_samples is then the draw cap. Stopping only
     truncates the run: the draws are the prefix of a fixed-length run's.
+
+    `mesh`: optional parallel.Mesh; the chains' likelihood (and, for HMC
+    and NUTS, its gradient) is evaluated in slices along `mesh_axis`
+    (default: all mesh axes), each on its device against a replica of the
+    tables, and gathered on `device`, where the chain state and the
+    generator stay — the replacement for the reference's `mpirun -n N
+    cobaya-run` per-process chains (victor/README.md:30).
     """
+    from ..parallel.mesh import shard_map
     from . import hmc as _hmc
     from . import mh as _mh
     from . import nuts as _nuts
@@ -228,9 +250,11 @@ def run_hmc_mcmc(bundle, params_block: Dict,
     # resolve per path, as in victor_tpu
     tables_arg, loglike = resolve_target(bundle, opts_kw, fit_kw,
                                          gradient_free=(algorithm == 'mh'))
-    _check_device(tables_arg, device)
+    _check_device(tables_arg, device, mesh)
     covmat_arr = None if covmat is None else _read_covmat(covmat, space)
-    logpost_y = unbounded_logpost(space, loglike, tables_arg)
+    logpost_y = shard_map(
+        lambda tbl, y: unbounded_logpost(space, loglike, tbl)(y),
+        tables_arg, mesh, mesh_axis)
     if algorithm == 'mh':
         def segment(st, i, length):
             return _mh.run_segment(logpost_y, st, i, length,
@@ -367,9 +391,14 @@ def run_mcmc(bundle, params_block: Dict,
              output: Optional[str] = None,
              checkpoint: Optional[str] = None,
              resume: bool = False, n_chain_files: int = 4,
-             move: str = 'de', device='cuda') -> MCMCResult:
+             move: str = 'de', mesh=None, mesh_axis: str = 'walkers',
+             device='cuda') -> MCMCResult:
     """Sample the posterior with the walker ensemble; returns chains +
     diagnostics.
+
+    `mesh`: optional parallel.Mesh; each half-update's likelihood batch is
+    sharded along `mesh_axis` (the walker state and the generator stay on
+    `device`).
 
     `move`: 'de' (default — differential evolution, ter Braak 2006; needs
     at least 4 walkers) or 'stretch' (Goodman & Weare). As in victor_tpu,
@@ -378,8 +407,9 @@ def run_mcmc(bundle, params_block: Dict,
     """
     device = _target_device(device)
     space = ParamSpace(params_block)
-    logpost, tables = _posterior_parts(bundle, space, opts_kw, fit_kw)
-    _check_device(tables, device)
+    logpost, tables = _posterior_parts(bundle, space, opts_kw, fit_kw,
+                                       mesh=mesh, mesh_axis=mesh_axis)
+    _check_device(tables, device, mesh)
 
     segments: list = []
     state = None

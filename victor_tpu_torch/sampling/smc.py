@@ -174,7 +174,8 @@ def run_smc(bundle, params_block: Dict, n_particles: int = 2048,
             chunk: Optional[int] = 64, max_stages: int = 200,
             checkpoint: Optional[str] = None, resume: bool = False,
             output: Optional[str] = None,
-            aux_names: Optional[list] = None, device='cuda') -> SMCResult:
+            aux_names: Optional[list] = None, mesh=None, mesh_axis=None,
+            device='cuda') -> SMCResult:
     """Sample the posterior AND estimate the evidence by tempered SMC.
 
     `bundle` is a CCFModelBundle, a multi-quantile JointBundle, a
@@ -189,8 +190,16 @@ def run_smc(bundle, params_block: Dict, n_particles: int = 2048,
     bisection is deterministic in the restored log-likelihoods and the
     generator is part of the state, so a resumed run is bit-identical to an
     uninterrupted one.
+
+    `mesh`: optional parallel.Mesh; every likelihood batch is split along
+    `mesh_axis` (default: all mesh axes), each slice evaluated on its
+    device against a replica of the tables in chunks of `chunk` (issued in
+    turn across the devices) and gathered on `device`. The particles, the
+    resampling, the stage and the generator stay on `device`, so the draws
+    do not depend on the mesh.
     """
     from . import chains as chain_io
+    from ..parallel.mesh import shard_map
     from .runner import _check_device
     from .targets import (is_callable_target, make_unbounded_wrappers,
                           resolve_target)
@@ -201,7 +210,7 @@ def run_smc(bundle, params_block: Dict, n_particles: int = 2048,
     # fast modes (config.resolve_perf_mode; explicit opts are the opt-out)
     tables_arg, loglike = resolve_target(bundle, opts_kw, fit_kw,
                                          gradient_free=True)
-    _check_device(tables_arg, device)
+    _check_device(tables_arg, device, mesh)
 
     # load a checkpoint FIRST: its particle count overrides the n_particles
     # argument
@@ -216,10 +225,9 @@ def run_smc(bundle, params_block: Dict, n_particles: int = 2048,
         log.info('resumed SMC from %s at beta=%.4f (stage %d)',
                  checkpoint, float(state['beta']), len(state['betas']) - 1)
 
-    lnprior, batched_lnlike = make_unbounded_wrappers(space, loglike, chunk)
-
-    def lnlike(y):
-        return batched_lnlike(tables_arg, y)
+    # shard_map chunks the batch (in turns across a mesh's devices)
+    lnprior, batched_lnlike = make_unbounded_wrappers(space, loglike)
+    lnlike = shard_map(batched_lnlike, tables_arg, mesh, mesh_axis, chunk)
 
     t0 = time.time()
     if state is None:

@@ -120,26 +120,23 @@ def is_callable_target(bundle) -> bool:
         and not isinstance(bundle, (JointBundle, ProductTarget))
 
 
-def make_unbounded_wrappers(space, loglike, chunk: Optional[int]):
+def make_unbounded_wrappers(space, loglike):
     """(lnprior, batched_lnlike) over the unbounded reparameterisation
     y = space.to_unbounded(theta), for the particle samplers (smc.py,
     nested.py).
 
     lnprior(y (N, ndim)) -> (N,) includes the reparameterisation's
     log-Jacobian; batched_lnlike(tbl, y (N, ndim)) -> (lnl (N,), aux (N, 1))
-    maps non-finite lnL to -inf and runs the batch in chunks of `chunk`
-    rows (likelihood/batched.py::chunked) to bound peak memory."""
-    from ..likelihood.batched import chunked
-
+    maps non-finite lnL to -inf. It evaluates the batch whole: the samplers
+    chunk it, and shard it over a mesh, through
+    `parallel.mesh.shard_map(batched_lnlike, tbl, mesh, axes, chunk)`."""
     def lnprior(y):
         return space.log_prior(space.to_bounded(y)) + space.log_jacobian(y)
 
-    def batched_lnlike(tbl, ys):
-        def run(y):
-            lnl, aux = loglike(tbl, space.full_params(space.to_bounded(y)))
-            return (torch.where(torch.isfinite(lnl), lnl, -math.inf),
-                    aux.reshape(y.shape[0], 1))
-        return chunked(run, chunk)(ys)
+    def batched_lnlike(tbl, y):
+        lnl, aux = loglike(tbl, space.full_params(space.to_bounded(y)))
+        return (torch.where(torch.isfinite(lnl), lnl, -math.inf),
+                aux.reshape(y.shape[0], 1))
 
     return lnprior, batched_lnlike
 

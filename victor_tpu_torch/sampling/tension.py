@@ -94,12 +94,14 @@ def parameter_shift(mean_a, cov_a, mean_b, cov_b):
 def run_tension(bundle_a, bundle_b, params_block: Dict,
                 n_particles: int = 4096, n_moves: int = 8, seed: int = 0,
                 opts_kw: Optional[Dict] = None, fit_kw: Optional[Dict] = None,
-                chunk: Optional[int] = 64, device='cuda') -> TensionResult:
+                chunk: Optional[int] = 64, mesh=None, mesh_axis=None,
+                device='cuda') -> TensionResult:
     """Three tempered-SMC runs (A, B, product AB at shared params) -> the
     evidence ratio ln R and the Gaussian parameter-shift n-sigma.
 
     `bundle_a`/`bundle_b` are any run_smc target kind, on `device` (the
-    card unless 'cpu' is asked for); `params_block` is the SHARED
+    card unless 'cpu' is asked for; `mesh` shards each run's likelihood as
+    run_smc does); `params_block` is the SHARED
     cobaya-style block (identical prior for all three runs — the ratio is
     meaningless otherwise). Distinct seeds per run keep the three evidence
     errors independent so they add in quadrature.
@@ -108,7 +110,8 @@ def run_tension(bundle_a, bundle_b, params_block: Dict,
 
     t0 = time.time()
     kw = dict(n_particles=n_particles, n_moves=n_moves, chunk=chunk,
-              opts_kw=opts_kw, fit_kw=fit_kw, device=device)
+              opts_kw=opts_kw, fit_kw=fit_kw, mesh=mesh, mesh_axis=mesh_axis,
+              device=device)
     res_a = run_smc(bundle_a, params_block, seed=seed, **kw)
     res_b = run_smc(bundle_b, params_block, seed=seed + 1, **kw)
     res_ab = run_smc(ProductTarget((bundle_a, bundle_b)), params_block,
