@@ -73,10 +73,12 @@ result line is printed):
    gradients: streaming_eval and beta_covariance exact, dispersion_final
    fast):
    a. the ppoly_eval backward kernel against its plain version at the three
-      lookups of one gradient of the HMC target (captured), at K = 2 and 3
-      over (8, 150000) and at EDGE_CASES, in f64 and f32, NaN and inf
-      positions identical; each call twice, for the same bits; the
-      lookups' backward timed;
+      lookups of one gradient of the HMC target (captured, with how their
+      queries fall into intervals), at K = 2 and 3 over (8, 150000), at
+      EDGE_CASES and at BWD_PATTERNS (a whole row in one interval,
+      alternating intervals, sorted runs, one 9.6M-query row, one table
+      read by 64 rows), in f64 and f32, NaN and inf positions identical;
+      each call twice, for the same bits; the lookups' backward timed;
    b. two 10-step HMC segments from one saved state: the same bits; the
       ops that torch itself flags as non-deterministic on the path, listed;
    c. d lnL / d theta of GRAD_CASES at GOLDEN and DISPLACED against
@@ -1942,13 +1944,11 @@ def hmc_start(space, n_chains=8, seed=5):
     return space.to_unbounded(space.sample_ref(gen, n_chains)), gen
 
 
-def backward_phase(bundle, gen):
-    """Phase 12a: the backward kernel against its plain version at the HMC
-    path's three lookups (captured from one gradient of the BOSS posterior
-    at 8 chains), at K = 2 and 3 over (8, 150000), at the Chebyshev-node
-    shapes and at EDGE_CASES, in f64 and f32, every comparison twice for
-    the same bits. Returns the timed results of the path's lookups by
-    label."""
+def hmc_backward_calls(bundle):
+    """The backward kernel's calls in one gradient of the HMC target at 8
+    chains (hmc_start), captured: (x, coeffs, q, grad_out, clamp, want_dq,
+    want_dcoeffs) each, in the order of the gradient (sigma_v, v_r,
+    xi_0)."""
     import torch
     from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.sampling.hmc import value_and_grad
@@ -1958,7 +1958,7 @@ def backward_phase(bundle, gen):
 
     def record(x, c, q, g, clamp=True, want_dq=True, want_dcoeffs=True):
         # the Function's saved inputs still require grad; the comparisons
-        # below run with gradients on, where the wrappers refuse them
+        # run with gradients on, where the wrappers refuse them
         calls.append(tuple(t.detach() for t in (x, c, q, g)) +
                      (clamp, want_dq, want_dcoeffs))
         return real(x, c, q, g, clamp, want_dq, want_dcoeffs)
@@ -1971,6 +1971,100 @@ def backward_phase(bundle, gen):
     finally:
         ppoly.ppoly_eval_backward_cuda = real
     torch.cuda.synchronize()
+    return calls
+
+
+def interval_groups(x, q, clamp):
+    """How a call's queries fall into intervals, which sets the backward's
+    reduction work: over windows of 32 consecutive queries of a row, the
+    number of windows whose largest set of queries sharing one interval
+    has each size (a dict size -> windows); the share of queries in the
+    interval of the query before; the mean length of a run of queries in
+    one interval."""
+    import torch
+    n = x.shape[0]
+    qq = torch.clamp(q, x[0], x[-1]) if clamp else q
+    idx = torch.clamp(torch.searchsorted(x, qq.contiguous(), right=True) - 1,
+                      0, n - 2)
+    B, M = idx.shape
+    w = idx[:, :M // 32 * 32].reshape(-1, 32)
+    counts = torch.zeros(w.shape[0], n - 1, dtype=torch.int64,
+                         device=q.device)
+    counts.scatter_add_(1, w, torch.ones_like(w))
+    hist = torch.bincount(counts.max(1).values, minlength=33).tolist()
+    same = idx[:, 1:] == idx[:, :-1]
+    return {'largest_group': {k: v for k, v in enumerate(hist) if v},
+            'same_as_previous': float(same.double().mean()),
+            'mean_run': B * M / (B * M - int(same.sum()))}
+
+
+def backward_cold_ms(x, c, q, g, clamp, want_dq, want_dc, copies=6):
+    """Device-only ms of one backward call with L2 cold: `copies` distinct
+    (q, grad_out) pairs in rotation, with their outputs, more than the
+    card's 50 MB L2 in all (`cold_ms` for the backward)."""
+    import collections
+    import itertools
+
+    from victor_tpu_torch.kernels.ppoly import ppoly_eval_backward_cuda
+
+    moved = nbytes(q, g) + (nbytes(q) if want_dq else 0)
+    check(copies * moved > L2_BYTES,
+          f'cold rotation: {copies} (q, grad_out) pairs of '
+          f'{moved / 1e6:.1f} MB exceed the {L2_BYTES / 1e6:.0f} MB L2')
+    turn = itertools.cycle([(q.clone(), g.clone()) for _ in range(copies)])
+    live = collections.deque(maxlen=copies)     # keeps the outputs distinct
+    return device_ms(lambda: live.append(ppoly_eval_backward_cuda(
+        x, c, *next(turn), clamp, want_dq, want_dc)))
+
+
+# Phase 12a's query patterns for the backward's reduction: (label, B, M,
+# knots, one shared table, pattern), each in f64 and f32 with clamp, NaN
+# and both infinities planted at the end of every row
+BWD_PATTERNS = [
+    ('every query in one interval', 8, N_POINTS, 30, False, 'one'),
+    ('intervals alternating at every query', 8, N_POINTS, 30, False,
+     'alternate'),
+    ('long sorted runs', 8, N_POINTS, 30, False, 'sorted'),
+    ('B = 1, one very long row', 1, 9_600_000, 25, False, 'random'),
+    ('one table read by 64 rows', 64, N_POINTS, 30, True, 'random'),
+]
+
+
+def pattern_inputs(B, M, n, shared, pattern, dtype, gen):
+    """The inputs of one of BWD_PATTERNS: `edge_inputs`' knots and
+    coefficients (one channel), queries uniform within interval n // 3
+    ('one'), alternating between intervals 3 and n - 5 ('alternate'),
+    sorted over [x[0], x[n-1]] along each row ('sorted') or edge_inputs'
+    own ('random'), and NaN, +inf and -inf as each row's last three."""
+    import torch
+    x, c, q = edge_inputs(B, M, n, 1, shared, 0, dtype, gen)
+    if pattern == 'random':
+        return x, c, q
+    xd = x.double()
+    u = torch.rand((B, M), generator=gen, device='cuda', dtype=torch.float64)
+    if pattern == 'sorted':
+        qd = xd[0] + (xd[-1] - xd[0]) * torch.sort(u, 1).values
+    else:
+        m = torch.arange(M, device='cuda')
+        iv = torch.full_like(m, n // 3) if pattern == 'one' else \
+            torch.where(m % 2 == 0, 3, n - 5)
+        qd = xd[iv] + u * (xd[iv + 1] - xd[iv])
+    q = qd.to(dtype)     # in f32 a query may round into the next interval
+    q[:, -3:] = torch.tensor([float('nan'), float('inf'), float('-inf')],
+                             dtype=dtype, device='cuda')
+    return x, c, q
+
+
+def backward_phase(bundle, gen):
+    """Phase 12a: the backward kernel against its plain version at the HMC
+    path's three lookups (captured from one gradient of the BOSS posterior
+    at 8 chains, with how their queries fall into intervals), at K = 2 and
+    3 over (8, 150000), at the Chebyshev-node shapes, at EDGE_CASES and at
+    BWD_PATTERNS, in f64 and f32, every comparison twice for the same bits.
+    Returns the timed results of the path's lookups by label."""
+    import torch
+
+    calls = hmc_backward_calls(bundle)
     check(len(calls) == 3, f'one gradient of the HMC target: {len(calls)} '
                            'backward calls (3: sigma_v, v_r, xi_0)')
     print('compare the ppoly_eval backward kernel vs plain:', flush=True)
@@ -1979,6 +2073,8 @@ def backward_phase(bundle, gen):
         label = (f'backward on the HMC path: coeffs={tuple(c.shape)} '
                  f'q={tuple(q.shape)} clamp={clamp} dq={want_dq} '
                  f'dcoeffs={want_dc}')
+        print(f'  {label}: queries by interval {interval_groups(x, q, clamp)}',
+              flush=True)
         results[label] = compare_backward(label, x, c, q, g, clamp, want_dq,
                                           want_dc, time_it=True)
     for dtype in (torch.float64, torch.float32):
@@ -1993,6 +2089,11 @@ def backward_phase(bundle, gen):
                              f'coeffs={tuple(c.shape)} {str(dtype)[6:]} '
                              f'clamp={clamp}', x, c, q,
                              grad_out_like(q, K, gen), clamp)
+        for label, B, M, n, shared, pattern in BWD_PATTERNS:
+            x, c, q = pattern_inputs(B, M, n, shared, pattern, dtype, gen)
+            compare_backward(f'backward pattern: {label}: q={tuple(q.shape)} '
+                             f'coeffs={tuple(c.shape)} {str(dtype)[6:]}', x,
+                             c, q, grad_out_like(q, 1, gen), True)
     return results
 
 
@@ -3888,8 +3989,9 @@ def kernel_row(name, source, replaces, launches, result, dtype,
     """One entry of the kernels summary line from a comparison's `timed`
     result (device-only ms, host us per call; the sampler's row also its L2
     warm reading, its `ms` being the cold one; a composed row also its
-    `calls`, `ms` being one call). No single PyTorch call computes either
-    kernel's function, so library_ms is null."""
+    `calls`, `ms` being one call), and bound_ms / ms as `bound_share`. No
+    single PyTorch call computes either kernel's function, so library_ms is
+    null."""
     bound_ms, bound_by = bound(result['bytes'], result['ops'], dtype)
     row = {'name': name, 'route': 'cuda',
            'source': f'victor_tpu_torch/kernels/csrc/{source}',
@@ -3897,7 +3999,8 @@ def kernel_row(name, source, replaces, launches, result, dtype,
            'max_abs_err': result['max_abs_err'], 'ms': result['ms'],
            'plain_ms': result['plain_ms'], 'bound_ms': bound_ms,
            'bound_by': bound_by, 'library_ms': None,
-           'host_us': result['host_us']}
+           'host_us': result['host_us'],
+           'bound_share': bound_ms / result['ms']}
     if 'warm_ms' in result:
         row.update(cold_ms=result['ms'], warm_ms=result['warm_ms'])
     if calls is not None:

@@ -646,6 +646,65 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, tol, B, M,
         assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
 
 
+# query patterns that stress the backward's reduction: (B, M, knots, one
+# shared table, pattern)
+BWD_PATTERNS = [
+    (8, 150_000, 30, False, 'one'),         # every query in one interval
+    (8, 150_000, 30, False, 'alternate'),   # intervals alternating
+    (8, 150_000, 30, False, 'sorted'),      # long sorted runs
+    (1, 9_600_000, 25, False, 'random'),    # B = 1, one very long row
+    (64, 150_000, 30, True, 'random'),      # one table read by 64 rows
+]
+
+
+def _pattern_inputs(rng, B, M, n, shared, pattern):
+    """`_edge_inputs` (one channel) with the queries of `pattern`: uniform
+    within interval n // 3 ('one'), alternating between intervals 3 and
+    n - 5 ('alternate'), sorted over [x[0], x[n-1]] along each row
+    ('sorted') or `_edge_inputs`' own ('random'); NaN, +inf and -inf as
+    each row's last three."""
+    x, c, base = _edge_inputs(rng, B, M, n, 1, shared, 0)
+    q = base.reshape(B, M)
+    if pattern == 'random':
+        return x, c, q
+    u = rng.uniform(0.0, 1.0, (B, M))
+    if pattern == 'sorted':
+        q = x[0] + (x[-1] - x[0]) * np.sort(u, 1)
+    else:
+        iv = np.full(M, n // 3) if pattern == 'one' else \
+            np.where(np.arange(M) % 2 == 0, 3, n - 5)
+        q = x[iv] + u * (x[iv + 1] - x[iv])
+    q[:, -3:] = [np.nan, np.inf, -np.inf]
+    return x, c, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize('B,M,n,shared,pattern', BWD_PATTERNS)
+def test_backward_kernel_query_patterns_on_card(cuda_device, dtype, tol, B, M,
+                                                n, shared, pattern):
+    """The backward kernel against its plain version where its reduction
+    works hardest: a whole warp in one interval, neighbours in alternating
+    intervals, long sorted runs, one very long row (hundreds of chunks into
+    one table) and one table read by 64 rows; NaN and inf positions
+    identical, and two calls give the same bits."""
+    rng = np.random.default_rng(B + M + n)
+    x_np, c_np, q_np = _pattern_inputs(rng, B, M, n, shared, pattern)
+    g_np = rng.standard_normal((B, M))
+    x, c, q, g = (torch.as_tensor(a, device=cuda_device).to(dtype)
+                  for a in (x_np, c_np, q_np, g_np))
+    got = ppoly.ppoly_eval_backward_cuda(x, c, q, g)
+    again = ppoly.ppoly_eval_backward_cuda(x, c, q, g)
+    want = ppoly.ppoly_eval_backward_plain(*(a.double() for a in (x, c, q, g)))
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want[0])
+    _check_grads(got, want, float(want[0][fin].abs().max()),
+                 _abs_terms(x, c, q, g, True), tol)
+    for a, b in zip(got, again):
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
 @pytest.mark.cuda
 def test_autograd_runs_the_backward_kernel_through_ops(cuda_device):
     """ops.splines on CUDA tensors that require grad: ppoly_eval with

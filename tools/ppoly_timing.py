@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the ppoly_eval kernel of one checkout of victor_tpu_torch on the card.
 
-    python3 tools/ppoly_timing.py [--root DIR] [--mh] [--out PATH]
+    python3 tools/ppoly_timing.py [--root DIR] [--mh] [--backward] [--out PATH]
 
 Imports victor_tpu_torch from DIR (default: this repository), builds its
 ppoly_eval kernel with nvcc and runs chip_smoke.py's ppoly_eval phases
@@ -11,8 +11,16 @@ tile ((8, 25), (8, 49), (64, 49)). Every time is device only
 (`chip_smoke.device_ms`) beside the wrapper's host microseconds per call
 (`chip_smoke.host_us`). `--mh` also runs phase 11b's default MH run and
 prints its draws, R-1 and the sha256 of its chain files: two checkouts give
-the same chains when the sha256 agree, on one software stack. The last line
-is one JSON object with every reading; `--out` writes it to a file as well.
+the same chains when the sha256 agree, on one software stack. `--backward`
+times the backward kernel instead: the three lookups of one gradient of
+phase 12's HMC target (sigma_v (1, 1200000) dq only; v_r and xi_0 (8,
+150000) f64, per-point tables, dq and dcoeffs), with how their queries fall
+into intervals, each checked against the plain version and timed device
+only with L2 warm and cold (`chip_smoke.backward_cold_ms`) and for host us
+per call; the same lookups in f32; K = 2 and 3 over (8, 150000); and the
+device time of the HMC leapfrog under torch.profiler, the backward's share
+of it. The last line is one JSON object with every reading; `--out` writes
+it to a file as well.
 
 This is an A/B tool. To compare two versions on one card, unpack the older
 commit into a git-ignored directory and time both in turns in one command:
@@ -20,6 +28,8 @@ commit into a git-ignored directory and time both in turns in one command:
     git archive <commit> | tar -x -C build/parent
     for r in build/parent . . build/parent; do
         python3 tools/ppoly_timing.py --root $r; done
+
+(`--backward` in the loop for the backward kernel.)
 """
 
 import argparse
@@ -31,51 +41,14 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--root', default=REPO,
-                        help='checkout whose victor_tpu_torch is timed')
-    parser.add_argument('--mh', action='store_true',
-                        help="also run phase 11b's default MH run")
-    parser.add_argument('--out', help='also write the JSON line here')
-    args = parser.parse_args()
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    # this repository's chip_smoke.py, whatever the root holds
-    spec = importlib.util.spec_from_file_location(
-        'chip_smoke', os.path.join(REPO, 'chip_smoke.py'))
-    cs = importlib.util.module_from_spec(spec)
-    sys.modules['chip_smoke'] = cs
-    spec.loader.exec_module(cs)
+def forward_rows(cs, gen, keep, rows):
+    """The forward kernel: chip_smoke's ppoly_eval phases, the MH step's
+    lookups with L2 cold and warm, and rows shorter than a tile."""
     import torch
-    if not torch.cuda.is_available():
-        print('ppoly_timing: no CUDA device', file=sys.stderr)
-        return 1
-    import victor_tpu_torch
     from victor_tpu_torch.io.tables import build_tables
-    from victor_tpu_torch.kernels import _build
     from victor_tpu_torch.kernels.ppoly import ppoly_eval_cuda
-    if not victor_tpu_torch.__file__.startswith(root):
-        raise RuntimeError(f'imported {victor_tpu_torch.__file__}, not the '
-                           f'package under {root}')
-    card = cs.card_line()
-    print(f'root {root}; card: {card}', flush=True)
-    lib = _build.build('ppoly_eval')
-    print(lib.with_suffix('.log').read_text().strip(), flush=True)
 
     f64 = torch.float64
-    gen = torch.Generator(device='cuda')
-    gen.manual_seed(0)
-    rows = {}
-
-    def keep(label, result, dtype):
-        bound_ms, _ = cs.bound(result['bytes'], result['ops'], dtype)
-        rows[label] = {k: result[k] for k in ('ms', 'plain_ms', 'host_us')}
-        rows[label].update(bound_ms=bound_ms,
-                           share=bound_ms / result['ms'])
-        if 'warm_ms' in result:
-            rows[label]['warm_ms'] = result['warm_ms']
-
     for key, result in cs.ppoly_phase(gen).items():
         dtype = key[0]
         if key[1] == 'multi':
@@ -106,11 +79,140 @@ def main() -> int:
         rows[f'small rows ({B}, {M}) n=31 per-row float64'] = {
             'ms': cs.device_ms(call, reps=200), 'host_us': cs.host_us(call)}
 
+
+def backward_rows(cs, bundle, gen, keep, rows):
+    """The backward kernel at the HMC path's lookups (f64 and f32), at K = 2
+    and 3, with L2 cold and warm, and the HMC leapfrog under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from victor_tpu_torch.sampling import hmc
+
+    def one(label, x, c, q, g, clamp, want_dq, want_dc):
+        result = cs.compare_backward(label, x, c, q, g, clamp, want_dq,
+                                     want_dc, time_it=True)
+        result['warm_ms'] = result['ms']
+        result['ms'] = cs.backward_cold_ms(x, c, q, g, clamp, want_dq,
+                                           want_dc)
+        keep(f'{label} (ms: L2 cold)', result, q.dtype)
+        print(f'  {label}: L2 cold {result["ms"]:.5f} ms, warm '
+              f'{result["warm_ms"]:.5f} ms', flush=True)
+
+    for x, c, q, g, clamp, want_dq, want_dc in cs.hmc_backward_calls(bundle):
+        groups = cs.interval_groups(x, q, clamp)
+        print(f'HMC lookup coeffs={tuple(c.shape)} q={tuple(q.shape)}: '
+              f'queries by interval {groups}', flush=True)
+        for dtype in (torch.float64, torch.float32):
+            label = (f'backward, HMC lookup coeffs={tuple(c.shape)} '
+                     f'q={tuple(q.shape)} dq={want_dq} dcoeffs={want_dc} '
+                     f'{str(dtype)[6:]}')
+            one(label, *(t.to(dtype) for t in (x, c, q, g)), clamp, want_dq,
+                want_dc)
+            rows[label + ' (ms: L2 cold)']['groups'] = groups
+    for K in (2, 3):
+        x, c, q = cs.edge_inputs(8, cs.N_POINTS, 30, K, False, 0,
+                                 torch.float64, gen)
+        one(f'backward, K={K} coeffs={tuple(c.shape)} q={tuple(q.shape)} '
+            'float64', x, c, q, cs.grad_out_like(q, K, gen), True, True,
+            True)
+
+    # the HMC leapfrog (8 chains, exact modes) under torch.profiler: one
+    # step after one of warm-up, per leapfrog
+    space, logpost_y = cs.boss_logpost(bundle)
+    calls = [0]
+
+    def counted(y):
+        calls[0] += 1
+        return logpost_y(y)
+    y0, hgen = cs.hmc_start(space)
+    st = hmc.init_chains(counted, y0, hgen)
+    st, _ = hmc.run_segment(counted, st, 0, 1, n_warmup=60)
+    torch.cuda.synchronize()
+    calls[0] = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        hmc.run_segment(counted, st, 1, 1, n_warmup=60)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    per = 1e-3 / calls[0]
+    total = sum(e.device_time_total for e in events) * per
+    bwd = sum(e.device_time_total for e in events if 'ppoly_bwd' in e.key) \
+        * per
+    memset = sum(e.device_time_total for e in events
+                 if 'memset' in e.key.lower()) * per
+    rows['HMC leapfrog under torch.profiler'] = {
+        'leapfrogs': calls[0], 'device_ms': total, 'backward_ms': bwd,
+        'backward_share': bwd / total, 'memset_ms': memset,
+        'backward_kernels': sorted({e.key for e in events
+                                    if 'ppoly_bwd' in e.key})}
+    print(f'HMC leapfrog under torch.profiler ({calls[0]} leapfrogs): '
+          f'device {total:.4f} ms, the backward kernel {bwd:.4f} ms '
+          f'({100 * bwd / total:.1f}%), memsets {memset:.4f} ms per '
+          'leapfrog', flush=True)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--root', default=REPO,
+                        help='checkout whose victor_tpu_torch is timed')
+    parser.add_argument('--mh', action='store_true',
+                        help="also run phase 11b's default MH run")
+    parser.add_argument('--backward', action='store_true',
+                        help='time the backward kernel at the HMC path\'s '
+                             'lookups instead')
+    parser.add_argument('--out', help='also write the JSON line here')
+    args = parser.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    # this repository's chip_smoke.py, whatever the root holds
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(REPO, 'chip_smoke.py'))
+    cs = importlib.util.module_from_spec(spec)
+    sys.modules['chip_smoke'] = cs
+    spec.loader.exec_module(cs)
+    import torch
+    if not torch.cuda.is_available():
+        print('ppoly_timing: no CUDA device', file=sys.stderr)
+        return 1
+    import victor_tpu_torch
+    from victor_tpu_torch.io.tables import build_tables
+    from victor_tpu_torch.kernels import _build
+    if not victor_tpu_torch.__file__.startswith(root):
+        raise RuntimeError(f'imported {victor_tpu_torch.__file__}, not the '
+                           f'package under {root}')
+    card = cs.card_line()
+    print(f'root {root}; card: {card}', flush=True)
+    lib = _build.build('ppoly_eval')
+    print(lib.with_suffix('.log').read_text().strip(), flush=True)
+
+    f64 = torch.float64
+    gen = torch.Generator(device='cuda')
+    gen.manual_seed(0)
+    rows = {}
+
+    def keep(label, result, dtype):
+        bound_ms, _ = cs.bound(result['bytes'], result['ops'], dtype)
+        rows[label] = {k: result[k] for k in ('ms', 'plain_ms', 'host_us')}
+        rows[label].update(bound_ms=bound_ms,
+                           share=bound_ms / result['ms'])
+        if 'warm_ms' in result:
+            rows[label]['warm_ms'] = result['warm_ms']
+
+    if args.backward:
+        cfg = cs.load_config()
+        bundle = build_tables(cfg['model'], cfg['data'], device='cuda',
+                              dtype=f64)
+        backward_rows(cs, bundle, gen, keep, rows)
+    else:
+        forward_rows(cs, gen, keep, rows)
     summary = {'root': root, 'card': card, 'kernels': rows}
     if args.mh:
         import tempfile
         with tempfile.TemporaryDirectory() as tmp:
-            _, steps, _, n_draws, rm1, digest = cs.mh_posterior(cfg, tmp)
+            _, steps, _, n_draws, rm1, digest = cs.mh_posterior(
+                cs.load_config(), tmp)
         summary['mh'] = {'steps': steps, 'draws': n_draws, 'rm1': rm1,
                          'sha256': digest}
     line = json.dumps(summary)

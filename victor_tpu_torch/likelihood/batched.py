@@ -67,6 +67,22 @@ def make_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
     return fn
 
 
+def chunked_vmap(fn, chunk: int):
+    """`torch.func.vmap(fn)` over the batch in chunks of `chunk` rows, the
+    counterpart of `victor_tpu.likelihood.chunked_vmap`: `fn` maps one row
+    theta[i] to a tensor or a tuple of tensors, and the returned function
+    maps theta (N, ...) to the same with a leading N axis. A batch larger
+    than `chunk` is cut into chunks of `chunk` rows, the last padded with
+    copies of theta[:1] and the pad rows dropped (`parallel.mesh.chunked`);
+    a smaller one is one call, which for a per-row `fn` gives the same rows.
+
+    `fn` must be made of PyTorch operations that `torch.func.vmap` can
+    batch. The port's likelihood makers are batched already (theta (N, P)
+    in, (N,) out) and chunk through `parallel.mesh.chunked`, so they need no
+    vmap: this is for per-row functions written against victor_tpu."""
+    return chunked(torch.func.vmap(fn), chunk)
+
+
 def make_batched_loglike(bundle: CCFModelBundle, param_names: Sequence[str],
                          base_params: Optional[Dict] = None,
                          opts_kw: Optional[Dict] = None,
