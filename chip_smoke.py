@@ -93,13 +93,16 @@ result line is printed):
    f. HMC leapfrogs/s with streaming_eval 'exact' and 'fast', and the
       kernels' device time per leapfrog under torch.profiler (information);
 13. second derivatives and the optimizer layer at full BOSS width, f64:
-   a. the second-order terms of the spline lookup (the forward and backward
-      kernels on derived tables, kernels/ppoly.py::ppoly_eval_second_order)
-      against autograd with create_graph=True through the plain backward,
-      at the three lookups of one Hessian of the BOSS target (captured), at
-      K = 2 and 3 over (8, 150000) and at EDGE_CASES, in f64 and f32, NaN
-      and inf positions identical, each call twice for the same bits; the
-      Hessian's lookups timed;
+   a. the second-order terms of the spline lookup (the fused kernel,
+      kernels/ppoly.py::ppoly_eval_second_order: one launch, two with
+      d/dcoeffs, and no forward or backward launch) against the composed
+      path (the forward and backward kernels on derived tables) entry for
+      entry and against autograd with create_graph=True through the plain
+      backward, at the three lookups of one Hessian of the BOSS target
+      (captured), at K = 2 and 3 over (8, 150000) and at EDGE_CASES, in f64
+      and f32, NaN and inf positions identical, each call twice for the
+      same bits; the Hessian's lookups timed in f64, fused and composed in
+      turns, L2 warm and cold;
    b. -Hessians of lnL of GRAD_CASES at GOLDEN and DISPLACED against
       victor_tpu's jax.hessian (HESS_GOLDENS) within 1e-8 of max|H|; one
       Hessian's wall and device time, second-order launches and peak memory;
@@ -116,8 +119,10 @@ result line is printed):
    f. `fit --bootstrap 4` with the launch counts set to 0 just before: the
       fit against FIT_GOLDENS at full precision, every refit finite, at
       victor_tpu's refit of the same mock (BOOT_GOLDENS) and polished
-      (|grad| < 1e-3), and the forward, backward and second-order launches,
-      the last also by Hessian lookup (calls and kernel launches);
+      (|grad| < 1e-3), every second-order call one launch of the fused
+      kernel (two with d/dcoeffs), and the forward, backward and
+      second-order launches, the last also by Hessian lookup (calls and
+      kernel launches);
    g. `fit configs/esm_sampling_config.yaml` in f64 (ESM_FIT_STARTS
       starts): the exact 9 x 9 Hessian at the optimum finite (so no
       finite-difference fallback was taken), and
@@ -221,9 +226,11 @@ result line is printed):
 Before them the script prints its own wall time. The last two lines are a
 JSON summary of the kernels (device-only `ms`, `host_us`; the sampler
 row's `ms` is its L2-cold reading, beside `warm_ms`;
-a second-order row's `ms` is one composed call of several launches, its
-`calls` the composed calls at its lookup and its `launches` their kernel
-launches; a particle-sampler row's `launches` are its lookup's in 14a's SMC
+a second-order row's `ms` is one call of the fused kernel (L2 warm;
+`cold_ms` cold), beside the composed path's `composed_ms`,
+`composed_cold_ms` and `composed_host_us`, its `calls` the calls at its
+lookup in 13f, its `launches` their kernel launches and
+`launches_per_call` one call's; a particle-sampler row's `launches` are its lookup's in 14a's SMC
 run, `ns_launches` in 14c's NS run) and the result line {"ok": true, "device": {...}}. `--profile PATH` also
 writes a torch.profiler summary of one batch of each timed configuration,
 of 20 MH steps in each perf mode and of 2 HMC steps to PATH.
@@ -1625,23 +1632,29 @@ def lookup_shape(x, coeffs, q, clamp):
     return (tuple(coeffs.shape), tuple(q.shape), bool(clamp))
 
 
-def cold_ms(x, coeffs, q, clamp, copies=6):
-    """Device-only ms of one ppoly_eval call with L2 cold: `copies` distinct
-    (q, out) pairs in rotation, more than the card's 50 MB L2 in all, so
-    that no launch finds its data in L2."""
+def rotated_ms(label, fn, rotated, moved, copies=6, reps=50):
+    """Device-only ms of one call `fn(*t)` with L2 cold: `copies` clones of
+    the tensors `rotated` (None stays None) taken in turn, their outputs
+    kept alive, `moved` bytes per call, more than the card's 50 MB L2 in
+    all, so that no call finds its data in L2."""
     import collections
     import itertools
-
-    from victor_tpu_torch.kernels.ppoly import ppoly_eval_cuda
-
-    check(copies * 2 * nbytes(q) > L2_BYTES,
-          f'cold rotation: {copies} (q, out) pairs of '
-          f'{2 * nbytes(q) / 1e6:.1f} MB exceed the '
-          f'{L2_BYTES / 1e6:.0f} MB L2')
-    turn = itertools.cycle([q.clone() for _ in range(copies)])
+    check(copies * moved > L2_BYTES,
+          f'cold rotation: {copies} {label} of {moved / 1e6:.1f} MB exceed '
+          f'the {L2_BYTES / 1e6:.0f} MB L2')
+    turn = itertools.cycle([tuple(None if t is None else t.clone()
+                                  for t in rotated) for _ in range(copies)])
     live = collections.deque(maxlen=copies)     # keeps the outputs distinct
-    return device_ms(lambda: live.append(
-        ppoly_eval_cuda(x, coeffs, next(turn), clamp)))
+    return device_ms(lambda: live.append(fn(*next(turn))), reps)
+
+
+def cold_ms(x, coeffs, q, clamp, copies=6):
+    """Device-only ms of one ppoly_eval call with L2 cold (`rotated_ms`:
+    distinct (q, out) pairs)."""
+    from victor_tpu_torch.kernels.ppoly import ppoly_eval_cuda
+    return rotated_ms('(q, out) pairs',
+                      lambda qq: ppoly_eval_cuda(x, coeffs, qq, clamp), (q,),
+                      2 * nbytes(q), copies)
 
 
 def sampler_kernel_case(bundle, theta, what='the MH step', run=None):
@@ -1999,22 +2012,12 @@ def interval_groups(x, q, clamp):
 
 
 def backward_cold_ms(x, c, q, g, clamp, want_dq, want_dc, copies=6):
-    """Device-only ms of one backward call with L2 cold: `copies` distinct
-    (q, grad_out) pairs in rotation, with their outputs, more than the
-    card's 50 MB L2 in all (`cold_ms` for the backward)."""
-    import collections
-    import itertools
-
+    """Device-only ms of one backward call with L2 cold (`rotated_ms`:
+    distinct (q, grad_out) pairs, with their outputs)."""
     from victor_tpu_torch.kernels.ppoly import ppoly_eval_backward_cuda
-
-    moved = nbytes(q, g) + (nbytes(q) if want_dq else 0)
-    check(copies * moved > L2_BYTES,
-          f'cold rotation: {copies} (q, grad_out) pairs of '
-          f'{moved / 1e6:.1f} MB exceed the {L2_BYTES / 1e6:.0f} MB L2')
-    turn = itertools.cycle([(q.clone(), g.clone()) for _ in range(copies)])
-    live = collections.deque(maxlen=copies)     # keeps the outputs distinct
-    return device_ms(lambda: live.append(ppoly_eval_backward_cuda(
-        x, c, *next(turn), clamp, want_dq, want_dc)))
+    return rotated_ms('(q, grad_out) pairs', lambda qq, gg: (
+        ppoly_eval_backward_cuda(x, c, qq, gg, clamp, want_dq, want_dc)),
+        (q, g), nbytes(q, g) + (nbytes(q) if want_dq else 0), copies)
 
 
 # Phase 12a's query patterns for the backward's reduction: (label, B, M,
@@ -2368,10 +2371,14 @@ def hmc_rates(bundle, card, profile_path):
 # ---------------------------------------------------------------------------
 
 def second_order_ops(n, K):
-    """Operations per query of the composed second-order terms: two forward
-    and three backward launches' work, and the elementwise products and
-    the clip factor around them (about 16)."""
-    return 2 * ppoly_ops(n, K) + 3 * bwd_ops(n, K) + 16
+    """Operations per query of the second-order terms as the fused kernel
+    computes them: the clip's selects and factor, the search's compares,
+    u c(q), and per channel the derived table (two products), u g and the
+    two derivative sums on D and V (six each), the two Horner forms with
+    their NaN term (eight each), the products and sums that join them
+    (four), the weight (u c(q)) g and the coefficient terms (three products,
+    four sums)."""
+    return 6 + math.ceil(math.log2(n - 1)) + 42 * K
 
 
 def second_order_plain(x, c, q, g, u, V, clamp, wants):
@@ -2411,24 +2418,70 @@ def second_order_scales(x, c, q, g, u, clamp):
                         2.0 * A[..., 1], 3.0 * A[..., 2]], -1)
 
 
+def same_terms(a, b):
+    """(equal, differing bits): two calls' second-order terms equal entry
+    for entry (None in the same places, NaN positions identical, every other
+    entry equal), and the number of entries whose bit patterns differ (a
+    zero's sign or a NaN's payload)."""
+    import torch
+    equal, bits = True, 0
+    for s, t in zip(a, b):
+        if s is None or t is None:
+            equal = equal and s is None and t is None
+            continue
+        equal = equal and torch.equal(torch.isnan(s), torch.isnan(t)) and \
+            torch.equal(torch.nan_to_num(s), torch.nan_to_num(t))
+        ints = torch.int64 if s.dtype == torch.float64 else torch.int32
+        bits += int((s.view(ints) != t.view(ints)).sum())
+    return equal, bits
+
+
+def second_order_cold_ms(fn, reps, x, c, q, g, u, V, clamp, wants,
+                         copies=6):
+    """Device-only ms of one second-order call `fn` with L2 cold
+    (`rotated_ms`: distinct (q, grad_out, u) triples, with their
+    outputs)."""
+    return rotated_ms('(q, grad_out, u) triples and outputs', lambda qq, gg,
+                      uu: fn(x, c, qq, gg, uu, V, clamp, *wants), (q, g, u),
+                      2 * nbytes(q) + 2 * nbytes(g) +
+                      (nbytes(u) if u is not None else 0), copies, reps)
+
+
 def compare_second_order(label, x, c, q, g, u, V, clamp, wants,
                          time_it=False):
     """The second-order terms on the card (ppoly_eval_second_order: the
-    forward and backward kernels on derived tables) against their plain
-    version (in f64) on the same inputs: NaN and inf positions identical
-    (d/dq and d/dgrad_out NaN at an infinite query without clamp, the
-    port's rule where its forward is NaN), d/dq and d/dgrad_out within TOL
-    x their largest entry, d/dcoeffs within
-    TOL x the summed magnitudes of its terms; a second call gives the same
-    bits. Returns `timed`'s result when `time_it`, else the max abs
-    error."""
+    fused kernel) against the composed path (the forward and backward
+    kernels on derived tables, ppoly_eval_second_order_composed), equal
+    entry for entry (`same_terms`; the differing bits printed), and against
+    their plain version (in f64) on the same inputs: NaN and inf positions
+    identical (d/dq and d/dgrad_out NaN at an infinite query without clamp,
+    the port's rule where its forward is NaN), d/dq and d/dgrad_out within
+    TOL x their largest entry, d/dcoeffs within TOL x the summed magnitudes
+    of its terms; a second call gives the same bits, with one launch, two
+    with d/dcoeffs, and no forward or backward launch. Returns the timed
+    result when `time_it`: fused and composed in turns, device only, L2
+    warm and cold, and host us per call; else the max abs error."""
     import torch
-    from victor_tpu_torch.kernels.ppoly import ppoly_eval_second_order
+    from victor_tpu_torch.kernels import ppoly
 
     def kernel():
-        return ppoly_eval_second_order(x, c, q, g, u, V, clamp, *wants)
+        return ppoly.ppoly_eval_second_order(x, c, q, g, u, V, clamp, *wants)
 
+    def composed():
+        return ppoly.ppoly_eval_second_order_composed(x, c, q, g, u, V, clamp,
+                                                      *wants)
+
+    counts = ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND
     got, again = kernel(), kernel()
+    per_call = 1 + bool(wants[0] and u is not None)
+    check((ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND) ==
+          (counts[0], counts[1], counts[2] + 2 * per_call),
+          f'{label}: {per_call} second-order launch(es) per call, no '
+          'forward or backward launch')
+    equal, bits = same_terms(got, composed())
+    torch.cuda.synchronize()
+    check(equal, f'{label}: fused equals composed in every term, entry for '
+                 f'entry ({bits} entries with other bits)')
     f64 = [None if a is None else a.double() for a in (x, c, q, g, u, V)]
     want = second_order_plain(*f64, clamp, wants)
     if not clamp:
@@ -2468,10 +2521,25 @@ def compare_second_order(label, x, c, q, g, u, V, clamp, wants,
     K = c.shape[1] if c.ndim == 4 else 1
     outs = [a for a in got if a is not None]
     ins = [a for a in (x, c, q, g, u, V) if a is not None]
-    return timed(label, err, kernel,
-                 lambda: second_order_plain(x, c, q, g, u, V, clamp, wants),
-                 nbytes(*ins, *outs), q.numel() * second_order_ops(
-                     x.shape[0], K), reps=(10, 3))
+    f1, c1 = device_ms(kernel), device_ms(composed, 10)
+    c2, f2 = device_ms(composed, 10), device_ms(kernel)
+    p1 = device_ms(lambda: second_order_plain(x, c, q, g, u, V, clamp,
+                                              wants), 3)
+    cold = [second_order_cold_ms(fn, reps, x, c, q, g, u, V, clamp, wants)
+            for fn, reps in ((ppoly.ppoly_eval_second_order, 50),
+                             (ppoly.ppoly_eval_second_order_composed, 10))]
+    us, us_c = host_us(kernel), host_us(composed, calls=200, chunk=20)
+    result = {'max_abs_err': err, 'ms': (f1 + f2) / 2,
+              'composed_ms': (c1 + c2) / 2, 'plain_ms': p1, 'cold_ms': cold[0],
+              'composed_cold_ms': cold[1], 'host_us': us,
+              'composed_host_us': us_c, 'launches_per_call': per_call,
+              'bytes': nbytes(*ins, *outs),
+              'ops': q.numel() * second_order_ops(x.shape[0], K)}
+    print(f'  {label}: fused {result["ms"]:.5f} ms (L2 cold {cold[0]:.5f}), '
+          f'composed {result["composed_ms"]:.5f} ms (cold {cold[1]:.5f}), '
+          f'plain {p1:.4f} ms (device only); host {us:.2f} us per fused '
+          f'call, {us_c:.2f} per composed call', flush=True)
+    return result
 
 
 def cotangents(c, q, gen):
@@ -2488,13 +2556,10 @@ def lookup_key(c, clamp):
     return tuple(c.shape[1:]), clamp
 
 
-def second_order_phase(bundle, gen):
-    """Phase 13a: the second-order terms on the card against their plain
-    version at the three lookups of one Hessian of the BOSS streaming
-    target (captured: 4 replicated rows of one point), at K = 2 and 3 over
-    (8, 150000) and at EDGE_CASES, in f64 and f32, every comparison twice
-    for the same bits. Returns {lookup_key: (label, timed result)} of the
-    Hessian's lookups."""
+def hessian_second_order_calls(bundle):
+    """The second-order calls of one Hessian of the BOSS streaming target
+    (4 replicated rows of one point), captured: (x, coeffs, q, grad_out, u,
+    V, clamp, wants) each, for sigma_v, v_r and xi_0."""
     import torch
     from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.sampling.optimize import value_grad_hessian
@@ -2517,15 +2582,34 @@ def second_order_phase(bundle, gen):
     torch.cuda.synchronize()
     check(len(calls) == 3, f'one Hessian of the BOSS target: {len(calls)} '
                            'second-order calls (3: sigma_v, v_r, xi_0)')
-    print('compare the ppoly_eval second-order terms vs plain:', flush=True)
+    return calls
+
+
+def second_order_phase(bundle, gen):
+    """Phase 13a: the second-order terms on the card (the fused kernel)
+    against the composed path and their plain version at the three lookups
+    of one Hessian of the BOSS streaming target (captured; timed in f64), at
+    K = 2 and 3 over (8, 150000) and at EDGE_CASES, in f64 and f32, every
+    comparison twice for the same bits. Returns {lookup_key: (label, timed
+    result)} of the Hessian's lookups."""
+    import torch
+
+    calls = hessian_second_order_calls(bundle)
+    print('compare the ppoly_eval second-order terms: fused vs composed vs '
+          'plain:', flush=True)
     results = {}
-    for x, c, q, g, u, V, clamp, wants in calls:
-        label = (f'second order on the Hessian path: coeffs='
-                 f'{tuple(c.shape)} q={tuple(q.shape)} clamp={clamp} '
-                 f'u={u is not None} V={V is not None} wants={wants}')
-        results[lookup_key(c, clamp)] = label, compare_second_order(
-            label, x, c, q, g, u, V, clamp, wants, time_it=True)
     for dtype in (torch.float64, torch.float32):
+        for x, c, q, g, u, V, clamp, wants in calls:
+            x, c, q, g, u, V = (None if a is None else a.to(dtype)
+                                for a in (x, c, q, g, u, V))
+            label = (f'second order on the Hessian path: coeffs='
+                     f'{tuple(c.shape)} q={tuple(q.shape)} clamp={clamp} '
+                     f'u={u is not None} V={V is not None} wants={wants} '
+                     f'{str(dtype)[6:]}')
+            res = compare_second_order(label, x, c, q, g, u, V, clamp, wants,
+                                       time_it=dtype == torch.float64)
+            if dtype == torch.float64:
+                results[lookup_key(c, clamp)] = label, res
         for K, shared in ((2, False), (3, False), (2, True), (3, True)):
             x, c, q = edge_inputs(8, N_POINTS, 30, K, shared, 0, dtype, gen)
             u, V = cotangents(c, q, gen)
@@ -2569,10 +2653,6 @@ def hessian_checks(bundle, card):
     under torch.profiler), its second-order launches and its peak device
     memory."""
     import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from victor_tpu_torch.kernels import ppoly
 
     for name, kw in GRAD_CASES.items():
         H = neg_loglike_hessian(bundle, kw, [GOLDEN, DISPLACED]).cpu().numpy()
@@ -2582,6 +2662,24 @@ def hessian_checks(bundle, card):
         check(np.isfinite(H).all() and err <= 1e-8,
               f'-Hessian of lnL ({name}) at the golden and displaced points: '
               f'max error {err:.3e} of max|H| against jax.hessian (<= 1e-8)')
+    t = hessian_timing(bundle)
+    check(t['launches'] > 0, f'second-order kernel launches per Hessian '
+                             f'(streaming, one point): {t["launches"]}')
+    print(f'  one 4 x 4 Hessian (streaming, one point, 4 replicated rows): '
+          f'{t["wall_ms"]:.2f} ms wall, {t["device_ms"]:.2f} ms of kernels '
+          f'under torch.profiler, {t["launches"]} second-order launches, '
+          f'peak {t["peak_gib"]:.2f} GiB on {card}', flush=True)
+
+
+def hessian_timing(bundle):
+    """One -Hessian of lnL of the streaming case at GOLDEN after one of
+    warm-up: its wall ms, its second-order launches and peak device memory
+    (GiB), then the device ms of its kernels under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from victor_tpu_torch.kernels import ppoly
+
     neg_loglike_hessian(bundle, {}, [GOLDEN])          # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2598,12 +2696,8 @@ def hessian_checks(bundle, card):
         torch.cuda.synchronize()
     device_us = sum(e.device_time_total for e in prof.key_averages()
                     if e.device_type == DeviceType.CUDA)
-    check(launches > 0, f'second-order kernel launches per Hessian '
-                        f'(streaming, one point): {launches}')
-    print(f'  one 4 x 4 Hessian (streaming, one point, 4 replicated rows): '
-          f'{1e3 * wall:.2f} ms wall, {device_us / 1e3:.2f} ms of kernels '
-          f'under torch.profiler, {launches} second-order launches, peak '
-          f'{peak:.2f} GiB on {card}', flush=True)
+    return {'wall_ms': 1e3 * wall, 'device_ms': device_us / 1e3,
+            'launches': launches, 'peak_gib': peak}
 
 
 class Captured:
@@ -2783,8 +2877,10 @@ def bootstrap_check(path):
     launch counts set to 0 just before: the fit against FIT_GOLDENS at full
     precision; every refit finite, within 1e-4 Laplace sigma of
     victor_tpu's refit of the same mock (BOOT_GOLDENS) and polished
-    (|grad| < 1e-3); bias and sigma (information). Returns the launches (forward, backward, second
-    order) and, by lookup_key, the second-order calls and the kernel
+    (|grad| < 1e-3); every second-order call one launch of the fused kernel
+    (two with d/dcoeffs) and none of the forward or backward kernel; bias
+    and sigma (information). Returns the launches (forward, backward,
+    second order) and, by lookup_key, the second-order calls and the kernel
     launches they made."""
     import numpy as np
     import torch
@@ -2792,12 +2888,19 @@ def bootstrap_check(path):
     per_lookup = {}
     real = ppoly.ppoly_eval_second_order
 
+    odd = []            # calls that did not launch the fused kernel alone
+
     def count(x, c, q, g, u, V, clamp=True, *wants):
-        before = ppoly.LAUNCHES_2ND
+        before = ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND
         out = real(x, c, q, g, u, V, clamp, *wants)
         key = lookup_key(c, clamp)
         calls, launches = per_lookup.get(key, (0, 0))
-        per_lookup[key] = calls + 1, launches + ppoly.LAUNCHES_2ND - before
+        made = ppoly.LAUNCHES_2ND - before[2]
+        per_lookup[key] = calls + 1, launches + made
+        per_call = 1 + bool((wants[0] if wants else True) and u is not None)
+        if made != per_call or (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD) != \
+                before[:2]:
+            odd.append(key)
         return out
 
     torch.cuda.synchronize()
@@ -2833,6 +2936,9 @@ def bootstrap_check(path):
     check(all(n > 0 for n in launches),
           f'fit --bootstrap 4 launched the forward ({launches[0]}), backward '
           f'({launches[1]}) and second-order ({launches[2]}) kernels')
+    check(not odd, 'fit --bootstrap 4: every second-order call launched '
+                   'the fused kernel once (twice with d/dcoeffs) and no '
+                   f'forward or backward kernel ({len(odd)} did not)')
     print(f'  fit --bootstrap 4: {wall:.2f} s; second-order calls and '
           f'kernel launches by lookup {per_lookup}', flush=True)
     return launches, per_lookup
@@ -3988,8 +4094,10 @@ def kernel_row(name, source, replaces, launches, result, dtype,
                calls=None):
     """One entry of the kernels summary line from a comparison's `timed`
     result (device-only ms, host us per call; the sampler's row also its L2
-    warm reading, its `ms` being the cold one; a composed row also its
-    `calls`, `ms` being one call), and bound_ms / ms as `bound_share`. No
+    warm reading, its `ms` being the cold one; a second-order row also its
+    L2 cold reading, the composed path's readings, its launches per call
+    and its `calls`, `ms` being one call), and bound_ms / ms as
+    `bound_share`. No
     single PyTorch call computes either kernel's function, so library_ms is
     null."""
     bound_ms, bound_by = bound(result['bytes'], result['ops'], dtype)
@@ -4003,6 +4111,9 @@ def kernel_row(name, source, replaces, launches, result, dtype,
            'bound_share': bound_ms / result['ms']}
     if 'warm_ms' in result:
         row.update(cold_ms=result['ms'], warm_ms=result['warm_ms'])
+    row.update({k: result[k] for k in ('cold_ms', 'composed_ms',
+                                       'composed_cold_ms', 'composed_host_us',
+                                       'launches_per_call') if k in result})
     if calls is not None:
         row['calls'] = calls
     return row
@@ -4249,7 +4360,7 @@ def main() -> int:
 
     # ---- 13. second derivatives and the optimizer layer ----
     t13 = time.perf_counter()
-    print('second derivatives: the composed second-order terms', flush=True)
+    print('second derivatives: the fused second-order kernel', flush=True)
     hess_results = second_order_phase(bundle, gen)
     print('second derivatives: Hessians against jax.hessian', flush=True)
     hessian_checks(bundle, card)
@@ -4319,15 +4430,15 @@ def main() -> int:
                    f'-step run)', 'ppoly_eval.cu',
                    'victor_tpu/ops/splines.py:205', hmc_launches, res, f64)
         for label, res in bwd_results.items()] + [
-        # the second derivatives compose the two kernels above on derived
-        # tables: jax.hessian of victor_tpu's ppoly_eval; launches: the
-        # kernel launches of this lookup's second-order calls in phase 13f's
-        # fit --bootstrap 4; calls: those calls, each timed as `ms`
-        kernel_row(f'ppoly_eval second order (forward and backward kernels '
-                   f'on derived tables), Hessian lookup '
-                   f'({label.split(": ")[1]}; launches: kernel launches at '
-                   f'this lookup in fit --bootstrap 4; calls: its composed '
-                   f'calls, each one `ms`)', 'ppoly_eval.cu',
+        # the second derivatives in one fused kernel: jax.hessian of
+        # victor_tpu's ppoly_eval; launches: the kernel launches of this
+        # lookup's second-order calls in phase 13f's fit --bootstrap 4;
+        # calls: those calls, each timed as `ms` (L2 warm; cold_ms cold)
+        # beside the composed path's `composed_ms`
+        kernel_row(f'ppoly_eval second order (fused kernel ppoly_2nd_chunks),'
+                   f' Hessian lookup ({label.split(": ")[1]}; launches: '
+                   f'kernel launches at this lookup in fit --bootstrap 4; '
+                   f'calls: its calls, each one `ms`)', 'ppoly_eval.cu',
                    'victor_tpu/ops/splines.py:205', per_lookup[key][1], res,
                    f64, calls=per_lookup[key][0])
         for key, (label, res) in hess_results.items()] + particle_rows + [

@@ -271,6 +271,105 @@ def test_backward_wrapper_refuses_on_cpu(case, match):
     assert ppoly.LAUNCHES_BWD == before
 
 
+@pytest.mark.parametrize('B,M,K,n,want_dc,with_v', [
+    (4, 150_000, 1, 31, True, True), (1, 600_000, 1, 25, False, True),
+    (8, 150_000, 2, 30, True, False), (16, 3000, 4, 30, True, True),
+    (16, 3000, 1, 1024, True, True), (16, 3000, 1, 200, True, True),
+    (16, 3000, 1, 1024, False, False), (8, 49, 3, 31, False, True)])
+def test_second_order_plan_takes_the_backward_plan(B, M, K, n, want_dc,
+                                                   with_v):
+    """The fused second-order kernel sums d/dcoeffs in the backward's order:
+    its plan takes the backward's tiles, chunks and copies for the same
+    call; its shared memory holds the backward's (table, keys, copies),
+    then V's table from a 16-byte boundary, within the H100's 227 KB."""
+    for itemsize in (8, 4):
+        bwd = ppoly.backward_plan(B, M, K, n, itemsize, want_dc, H100_BWD)
+        plan = ppoly.second_order_plan(B, M, K, n, itemsize, want_dc, with_v,
+                                       H100_BWD)
+        assert plan[:3] == bwd[:3]
+        table = ppoly._smem_bytes(n, K, itemsize)
+        copies = bwd.copies * 4 * K * (n - 1) * itemsize if want_dc else 0
+        v = 4 * K * (n - 1) * itemsize if with_v else 0
+        assert bwd.smem == table + copies
+        assert plan.smem == (-(-bwd.smem // 16) * 16 + v if with_v
+                             else bwd.smem)
+        assert plan.smem <= 227 * 1024
+
+
+@pytest.mark.parametrize('case,match', [
+    ('cpu', 'CUDA'), ('u_shape', 'u must be'), ('u_dtype', 'u must be'),
+    ('u_strides', 'contiguous'), ('V_shape', 'V must be'),
+    ('V_dtype', 'V must be'), ('V_strides', 'contiguous'),
+    ('grad_shape', 'grad_out must be'), ('coeff_rows', 'coeffs must be'),
+    ('five_channels', 'channels')])
+def test_second_order_wrapper_refuses_on_cpu(case, match):
+    """The fused second-order kernel's checks run before any launch, on CPU
+    tensors too, and count no launch."""
+    f64 = torch.float64
+    x = torch.linspace(0.0, 1.0, 30, dtype=f64)
+    c = torch.zeros(2, 29, 4, dtype=f64)
+    q = torch.zeros(2, 7, dtype=f64)
+    g = torch.zeros(2, 7, dtype=f64)
+    good = (x, c, q, g, q.clone(), c.clone())
+    bad = {'cpu': good,
+           'u_shape': (x, c, q, g, q[:, :6], c),
+           'u_dtype': (x, c, q, g, q.float(), c),
+           'u_strides': (x, c, q, g, torch.zeros(7, 2, dtype=f64).t(), c),
+           'V_shape': (x, c, q, g, q, c[:1]),
+           'V_dtype': (x, c, q, g, None, c.float()),
+           'V_strides': (x, c, q, g, q,
+                         torch.zeros(2, 4, 29, dtype=f64).transpose(1, 2)),
+           'grad_shape': (x, c, q, g[:, :6], q, c),
+           'coeff_rows': (x, torch.zeros(3, 29, 4, dtype=f64), q, g, q, None),
+           'five_channels': (x, torch.zeros(2, 5, 29, 4, dtype=f64), q,
+                             torch.zeros(2, 5, 7, dtype=f64), q, None)}[case]
+    before = ppoly.LAUNCHES_2ND
+    with pytest.raises(ValueError, match=match):
+        ppoly.ppoly_eval_second_order_cuda(*bad)
+    assert ppoly.LAUNCHES_2ND == before
+
+
+@pytest.mark.parametrize('with_u,with_v', [(True, True), (True, False),
+                                           (False, True)])
+@pytest.mark.parametrize('wants', [(True, True, True), (False, True, False),
+                                   (True, False, True)])
+@pytest.mark.parametrize('K', [1, 3])
+def test_second_order_on_cpu_takes_the_plain_composition(with_u, with_v,
+                                                         wants, K):
+    """On CPU tensors ppoly_eval_second_order is the composition of the
+    plain versions (ppoly_eval_second_order_composed), bit for bit, and
+    within 1e-12 of autograd through the plain backward; it returns None
+    where a term is not asked for or cannot be reached (d/dcoeffs without
+    u), and counts no launch."""
+    rng = np.random.default_rng(31 + K)
+    B, M, n = 3, 40, 12
+    x_np, c_np, q_np = _edge_inputs(rng, B, M, n, K, False, 0)
+    g_np = rng.standard_normal((B, K, M) if K > 1 else (B, M))
+    x, c, q, g = (_t(a) for a in (x_np, c_np, q_np[:B * M].reshape(B, M),
+                                  g_np))
+    u = _t(rng.standard_normal((B, M))) if with_u else None
+    V = _t(rng.standard_normal(c_np.shape)) if with_v else None
+    before = (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND)
+    got = ppoly.ppoly_eval_second_order(x, c, q, g, u, V, True, *wants)
+    assert (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND) == before
+    composed = ppoly.ppoly_eval_second_order_composed(x, c, q, g, u, V, True,
+                                                      *wants)
+    want = _second_order_plain(x, c, q, g,
+                               torch.zeros_like(q) if u is None else u,
+                               torch.zeros_like(c) if V is None else V, True)
+    reached = (with_u, with_u or with_v, with_u or with_v)
+    for a, b, p, asked, reach in zip(got, composed, want, wants, reached):
+        if not (asked and reach):
+            assert a is None and b is None
+            continue
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+        assert torch.equal(torch.isnan(a), torch.isnan(p))
+        fin = torch.isfinite(p)
+        assert float((a - p)[fin].abs().max()) <= \
+            1e-12 * float(p[fin].abs().max())
+
+
 @pytest.mark.parametrize('case,error,match', [
     ('cpu', ValueError, 'CUDA'),
     ('grad', RuntimeError, 'no backward'),
@@ -784,11 +883,11 @@ def _second_order_plain(x, c, q, g, u, V, clamp):
 @pytest.mark.parametrize('clamp', [True, False])
 def test_second_order_matches_plain_on_card(cuda_device, dtype, tol, B, M, n,
                                             K, shared, offset, clamp):
-    """ppoly_eval_second_order on the card (five launches of the forward
-    and backward kernels on derived tables) against autograd through the
-    plain backward in f64: NaN and inf positions identical, d/dq and
-    d/dgrad_out within tol x their largest entry, d/dcoeffs within tol x
-    the summed magnitudes of its terms; two calls give the same bits."""
+    """ppoly_eval_second_order on the card (the fused kernel: two launches
+    with d/dcoeffs) against autograd through the plain backward in f64: NaN
+    and inf positions identical, d/dq and d/dgrad_out within tol x their
+    largest entry, d/dcoeffs within tol x the summed magnitudes of its
+    terms; two calls give the same bits."""
     rng = np.random.default_rng(5 * B + M + n + K + offset)
     x_np, c_np, base_np = _edge_inputs(rng, B, M, n, K, shared, offset)
     g_np = rng.standard_normal((B, K, M) if K > 1 else (B, M))
@@ -800,7 +899,7 @@ def test_second_order_matches_plain_on_card(cuda_device, dtype, tol, B, M, n,
     before = ppoly.LAUNCHES_2ND
     got = ppoly.ppoly_eval_second_order(x, c, q, g, u, V, clamp)
     again = ppoly.ppoly_eval_second_order(x, c, q, g, u, V, clamp)
-    assert ppoly.LAUNCHES_2ND == before + 10
+    assert ppoly.LAUNCHES_2ND == before + 4
     want = _second_order_plain(x, c, q, g, u, V, clamp)
     torch.cuda.synchronize()
     cq = ppoly.clip_factor(x.double(), q.double()) if clamp else 1.0
@@ -822,11 +921,57 @@ def test_second_order_matches_plain_on_card(cuda_device, dtype, tol, B, M, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('B,M,n,K,shared,offset', [
+    (16, 3000, 30, 4, False, 1), (16, 3001, 31, 1, False, 0),
+    (16, 3, 31, 1, False, 0), (8, 49, 31, 3, False, 0),
+    (16, 65, 31, 2, True, 0), (16, 3000, 2, 1, False, 0),
+    (16, 3000, 1024, 1, False, 0),
+    (1, 600_000, 25, 1, True, 0),       # a Hessian's sigma_v lookup
+    (4, 150_000, 31, 1, False, 0),      # its v_r and xi_0 lookups
+    (4, 150_000, 30, 2, False, 0)])
+@pytest.mark.parametrize('clamp', [True, False])
+def test_second_order_fused_equals_composed_on_card(cuda_device, dtype, B, M,
+                                                    n, K, shared, offset,
+                                                    clamp):
+    """The fused second-order kernel against the composed path (the forward
+    and backward kernels on derived tables) on the same inputs: every term
+    equal bit for bit (NaN positions identical), with both cotangents, with
+    u or V alone, and with a term not asked for; one launch, two with
+    d/dcoeffs."""
+    rng = np.random.default_rng(7 * B + M + n + K + offset)
+    x_np, c_np, base_np = _edge_inputs(rng, B, M, n, K, shared, offset)
+    g_np = rng.standard_normal((B, K, M) if K > 1 else (B, M))
+    x, c, base, g, u, V = (
+        torch.as_tensor(a, device=cuda_device).to(dtype)
+        for a in (x_np, c_np, base_np, g_np, rng.standard_normal((B, M)),
+                  rng.standard_normal(c_np.shape)))
+    q = base[offset:].view(B, M)
+    for uu, VV, wants in ((u, V, (True, True, True)),
+                          (u, None, (True, True, False)),
+                          (None, V, (False, True, True)),
+                          (u, V, (False, True, True))):
+        before = ppoly.LAUNCHES_2ND
+        got = ppoly.ppoly_eval_second_order_cuda(x, c, q, g, uu, VV, clamp,
+                                                 *wants)
+        assert ppoly.LAUNCHES_2ND == before + 1 + (wants[0] and uu is not None)
+        want = ppoly.ppoly_eval_second_order_composed(x, c, q, g, uu, VV,
+                                                      clamp, *wants)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(torch.isnan(a), torch.isnan(b))
+                assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.cuda
 def test_second_derivatives_through_ops_launch_the_kernels(cuda_device):
     """A Hessian-vector product of a spline lookup through ops.splines on
     CUDA tensors (create_graph=True, then a second backward) launches the
-    second-order kernels (three terms: the cotangent of dq reaches the
-    queries and the coefficients, that of dcoeffs the queries) and agrees
+    fused second-order kernel once with its reduce (the cotangent of dq
+    reaches the queries and the coefficients, that of dcoeffs the queries:
+    d/dcoeffs is wanted) and agrees
     with the same product on the CPU; a third order raises."""
     rng = np.random.default_rng(23)
     x = _knots(rng, 25)
@@ -845,7 +990,7 @@ def test_second_derivatives_through_ops_launch_the_kernels(cuda_device):
         results[dev.type] = torch.autograd.grad(s, (qq, cc),
                                                 retain_graph=True)
         if dev.type == 'cuda':
-            assert ppoly.LAUNCHES_2ND == before + 3
+            assert ppoly.LAUNCHES_2ND == before + 2
             with pytest.raises(RuntimeError, match='third'):
                 torch.autograd.grad(s, qq, create_graph=True)
     for got, want in zip(results['cuda'], results['cpu']):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the ppoly_eval kernel of one checkout of victor_tpu_torch on the card.
 
-    python3 tools/ppoly_timing.py [--root DIR] [--mh] [--backward] [--out PATH]
+    python3 tools/ppoly_timing.py [--root DIR] [--mh] [--backward]
+                                  [--second-order] [--out PATH]
 
 Imports victor_tpu_torch from DIR (default: this repository), builds its
 ppoly_eval kernel with nvcc and runs chip_smoke.py's ppoly_eval phases
@@ -19,8 +20,16 @@ into intervals, each checked against the plain version and timed device
 only with L2 warm and cold (`chip_smoke.backward_cold_ms`) and for host us
 per call; the same lookups in f32; K = 2 and 3 over (8, 150000); and the
 device time of the HMC leapfrog under torch.profiler, the backward's share
-of it. The last line is one JSON object with every reading; `--out` writes
-it to a file as well.
+of it. `--second-order` times the root's `ppoly_eval_second_order` instead
+(the fused kernel on a tree that has one, the composed path before it): the
+three lookups of one Hessian of phase 13's BOSS target (sigma_v (1,
+600000), v_r and xi_0 (4, 150000), captured) in f64 and f32 and K = 2 and 3
+over (8, 150000), device only with L2 warm and cold and for host us per
+call; on a tree with the fused kernel also its composed path in turns, held
+equal to it entry for entry; then the wall time, kernel time under
+torch.profiler and second-order launches of three 4 x 4 Hessians. The last
+line is one JSON object with every reading; `--out` writes it to a file as
+well.
 
 This is an A/B tool. To compare two versions on one card, unpack the older
 commit into a git-ignored directory and time both in turns in one command:
@@ -29,7 +38,8 @@ commit into a git-ignored directory and time both in turns in one command:
     for r in build/parent . . build/parent; do
         python3 tools/ppoly_timing.py --root $r; done
 
-(`--backward` in the loop for the backward kernel.)
+(`--backward` or `--second-order` in the loop for the backward kernel or
+the second order.)
 """
 
 import argparse
@@ -153,6 +163,73 @@ def backward_rows(cs, bundle, gen, keep, rows):
           'leapfrog', flush=True)
 
 
+def second_order_rows(cs, bundle, gen, rows):
+    """The root's second-order terms at a Hessian's lookups (f64, f32) and
+    at K = 2 and 3 over (8, 150000) f64, L2 warm and cold and host us; on a
+    root with the fused kernel its composed path too, in turns, held equal
+    to it; then three Hessians' wall and kernel time."""
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+
+    composed = getattr(ppoly, 'ppoly_eval_second_order_composed', None)
+    # the composed path's ~35 launches a call: 10 calls fit the launch queue
+    fns = [('', ppoly.ppoly_eval_second_order, 10 if composed is None else 50)]
+    if composed is not None:
+        fns.append(('composed_', composed, 10))
+
+    def one(label, x, c, q, g, u, V, clamp, wants):
+        K = c.shape[1] if c.ndim == 4 else 1
+        out = ppoly.ppoly_eval_second_order(x, c, q, g, u, V, clamp, *wants)
+        row = {'bytes': cs.nbytes(*(a for a in (x, c, q, g, u, V, *out)
+                                    if a is not None))}
+        bound_ms, _ = cs.bound(row['bytes'], q.numel() * cs.second_order_ops(
+            x.shape[0], K), q.dtype)
+        if composed is not None:
+            equal, bits = cs.same_terms(out, composed(x, c, q, g, u, V, clamp,
+                                                      *wants))
+            cs.check(equal, f'{label}: fused equals composed ({bits} '
+                            'entries with other bits)')
+            row['other_bits'] = bits
+        calls = {p: (lambda fn=fn: fn(x, c, q, g, u, V, clamp, *wants))
+                 for p, fn, _ in fns}
+        reps = {p: r for p, _, r in fns}
+        order = list(calls) + list(calls)[::-1]
+        warm = {p: [] for p in calls}
+        for p in order:                            # in turns
+            warm[p].append(cs.device_ms(calls[p], reps[p]))
+        for p, fn, r in fns:
+            row[p + 'ms'] = sum(warm[p]) / 2
+            row[p + 'cold_ms'] = cs.second_order_cold_ms(fn, r, x, c, q, g,
+                                                         u, V, clamp, wants)
+            row[p + 'host_us'] = cs.host_us(calls[p], calls=20 * r,
+                                            chunk=2 * r)
+        row.update(bound_ms=bound_ms, share=bound_ms / row['ms'],
+                   cold_share=bound_ms / row['cold_ms'])
+        rows[label] = row
+        print(f'  {label}: ' + ', '.join(f'{k} {v:.5g}' for k, v in
+                                          row.items()), flush=True)
+
+    calls = cs.hessian_second_order_calls(bundle)
+    for dtype in (torch.float64, torch.float32):
+        for x, c, q, g, u, V, clamp, wants in calls:
+            x, c, q, g, u, V = (None if a is None else a.to(dtype)
+                                for a in (x, c, q, g, u, V))
+            one(f'second order, Hessian lookup coeffs={tuple(c.shape)} '
+                f'q={tuple(q.shape)} clamp={clamp} wants={wants} '
+                f'{str(dtype)[6:]}', x, c, q, g, u, V, clamp, wants)
+    for K in (2, 3):
+        x, c, q = cs.edge_inputs(8, cs.N_POINTS, 30, K, False, 0,
+                                 torch.float64, gen)
+        u, V = cs.cotangents(c, q, gen)
+        one(f'second order, K={K} coeffs={tuple(c.shape)} q={tuple(q.shape)}'
+            ' float64', x, c, q, cs.grad_out_like(q, K, gen), u, V, True,
+            (True, True, True))
+    for i in range(3):
+        t = cs.hessian_timing(bundle)
+        rows[f'4 x 4 Hessian {i + 1}'] = t
+        print(f'  4 x 4 Hessian {i + 1}: {t}', flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--root', default=REPO,
@@ -161,6 +238,9 @@ def main() -> int:
                         help="also run phase 11b's default MH run")
     parser.add_argument('--backward', action='store_true',
                         help='time the backward kernel at the HMC path\'s '
+                             'lookups instead')
+    parser.add_argument('--second-order', action='store_true',
+                        help="time the second-order terms at a Hessian's "
                              'lookups instead')
     parser.add_argument('--out', help='also write the JSON line here')
     args = parser.parse_args()
@@ -200,11 +280,14 @@ def main() -> int:
         if 'warm_ms' in result:
             rows[label]['warm_ms'] = result['warm_ms']
 
-    if args.backward:
+    if args.backward or args.second_order:
         cfg = cs.load_config()
         bundle = build_tables(cfg['model'], cfg['data'], device='cuda',
                               dtype=f64)
-        backward_rows(cs, bundle, gen, keep, rows)
+        if args.backward:
+            backward_rows(cs, bundle, gen, keep, rows)
+        else:
+            second_order_rows(cs, bundle, gen, rows)
     else:
         forward_rows(cs, gen, keep, rows)
     summary = {'root': root, 'card': card, 'kernels': rows}

@@ -86,7 +86,8 @@
 // of 4(n-1) coefficients, S = max(2 * first step, 1) search keys, x[n-1].
 //
 // The backward (ppoly_bwd_chunks, ppoly_bwd_reduce) follows the forward's
-// launch code, with its own design note.
+// launch code, with its own design note, and its second derivatives
+// (ppoly_2nd_chunks) follow the backward, with theirs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -146,6 +147,14 @@ template <typename T> struct Vec<T, 1> {
     }
 };
 
+// Horner's rule at offset t of the located query qq, plus the NaN term: the
+// forward's value. Every kernel here that evaluates a table calls this, so
+// that nvcc contracts it into the same FMAs everywhere.
+template <typename T>
+__device__ __forceinline__ T horner(T c0, T c1, T c2, T c3, T t, T qq) {
+    return ((c3 * t + c2) * t + c1) * t + c0 + (qq - qq);
+}
+
 // The staged table of one row: K channels of coefficients, then the search
 // keys, then x[n-1]. f64 channels are split into (c0, c1) and (c2, c3) pair
 // arrays; f32 channels keep (c0..c3) together.
@@ -162,12 +171,36 @@ struct Table {
 
     // Copy K channels of `crow` and the knots into `sm` (threads tid, tid +
     // nt, ... of the copy), U loads in flight per thread: each pass issues
-    // its loads before its stores. f64 coefficient e of interval iv goes to
-    // the (c0, c1) or the (c2, c3) pair array of its channel.
+    // its loads before its stores.
     template <int K, int U>
     __device__ __forceinline__ void stage(T* sm, const T* __restrict__ x,
                                           const T* __restrict__ crow, int tid,
                                           int nt) const {
+        stage_channels<K, U>(sm, crow, tid, nt);
+        T* key = sm + K * table;
+        for (int base = tid; base <= keys; base += U * nt) {
+            T v[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int i = base + u * nt;
+                const int src = i < keys ? i : n - 1;   // x[n-1] last
+                v[u] = (i <= keys && (i == keys || i <= n - 2))
+                    ? __ldg(x + src) : quiet_nan<T>();
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                const int i = base + u * nt;
+                if (i <= keys) key[i] = v[u];
+            }
+        }
+    }
+
+    // The K channels alone: f64 coefficient e of interval iv goes to the
+    // (c0, c1) or the (c2, c3) pair array of its channel.
+    template <int K, int U>
+    __device__ __forceinline__ void stage_channels(T* sm,
+                                                   const T* __restrict__ crow,
+                                                   int tid, int nt) const {
 #pragma unroll
         for (int k = 0; k < K; ++k) {
             for (int base = tid; base < table; base += U * nt) {
@@ -185,22 +218,6 @@ struct Table {
                         ? (i & 2) * (table >> 2) + 2 * (i >> 2) + (i & 1) : i;
                     sm[k * table + slot] = v[u];
                 }
-            }
-        }
-        T* key = sm + K * table;
-        for (int base = tid; base <= keys; base += U * nt) {
-            T v[U];
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-                const int i = base + u * nt;
-                const int src = i < keys ? i : n - 1;   // x[n-1] last
-                v[u] = (i <= keys && (i == keys || i <= n - 2))
-                    ? __ldg(x + src) : quiet_nan<T>();
-            }
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-                const int i = base + u * nt;
-                if (i <= keys) key[i] = v[u];
             }
         }
     }
@@ -239,8 +256,7 @@ struct Table {
                                        T qq) const {
         T c0, c1, c2, c3;
         coeffs(sm + k * table, i, c0, c1, c2, c3);
-        const T t = qq - xi;
-        return ((c3 * t + c2) * t + c1) * t + c0 + (qq - qq);
+        return horner(c0, c1, c2, c3, qq - xi, qq);
     }
 
     __device__ __forceinline__ void coeffs(const T* c, int i, T& c0, T& c1,
@@ -436,6 +452,97 @@ template <> __device__ __forceinline__ float mul_rn<float>(float a, float b) {
     return __fmul_rn(a, b);
 }
 
+// The clip's derivative at q (jnp.clip's: 1 inside, 0.5 at a bound, 0
+// outside and at NaN).
+template <typename T>
+__device__ __forceinline__ T clip_factor(T q, T x0, T xn) {
+    return (q > x0 && q < xn) ? T(1) : (q == x0 || q == xn) ? T(0.5) : T(0);
+}
+
+// sum_k g_k p_k'(t), p_k's coefficients given by coeffs_of(k, c0, c1, c2,
+// c3): the backward's dq before the clip factor, in its own op order (the
+// second order calls it too, so that nvcc contracts it the same way).
+template <typename T, int K, typename Coeffs>
+__device__ __forceinline__ T slope_sum(const Coeffs& coeffs_of, const T* g,
+                                       T t) {
+    T d = T(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+        T c0, c1, c2, c3;
+        coeffs_of(k, c0, c1, c2, c3);
+        const T dk = g[k] * ((T(3) * c3 * t + T(2) * c2) * t + c1);
+        d = k == 0 ? dk : d + dk;
+    }
+    return d;
+}
+
+// Add the terms w_k (1, t, t^2, t^3) of the active lanes, each at its
+// interval i, into the warp's copy `mine` of the K x E sums: the lanes of
+// one interval find each other with __match_any_sync, each sums its group's
+// terms by shuffles in ascending lane order, and the group's lowest lane
+// adds them in, the warps that share a copy taking `rounds` fixed turns.
+// Called by every thread of the block.
+template <typename T, int K>
+__device__ __forceinline__ void add_terms(T* mine, int E, int rounds,
+                                          int copies, int warp, int lane,
+                                          bool active, int i, T t,
+                                          const T* w) {
+    const int ival = active ? i : -1;
+    const unsigned group = __match_any_sync(0xffffffffu, ival);
+    T s[K][4];
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[k][j] = T(0);
+    unsigned rest = group;
+    // every lane walks its own group in ascending lane order; the loop runs
+    // to the largest group of the warp, all lanes together
+    while (__any_sync(0xffffffffu, rest != 0u)) {
+        const int src = rest ? __ffs(rest) - 1 : lane;
+        const T ts = __shfl_sync(0xffffffffu, t, src);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            T p = __shfl_sync(0xffffffffu, w[k], src);
+            if (rest) {
+                s[k][0] += p;
+                p = mul_rn(p, ts);
+                s[k][1] += p;
+                p = mul_rn(p, ts);
+                s[k][2] += p;
+                p = mul_rn(p, ts);
+                s[k][3] += p;
+            }
+        }
+        rest &= rest - 1u;
+    }
+    const bool leader = active && lane == __ffs(group) - 1;
+    for (int r = 0; r < rounds; ++r) {
+        if (leader && warp / copies == r) {
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    mine[k * E + 4 * i + j] += s[k][j];
+        }
+        if (rounds > 1) __syncthreads();
+        else __syncwarp();
+    }
+}
+
+// At a block's end: its copies of the KE sums added in copy order, written
+// to the block's partial table.
+template <typename T>
+__device__ __forceinline__ void write_partial(const T* acc, T* partial,
+                                              int KE, int copies) {
+    __syncthreads();
+    T* out = partial + (int64_t)blockIdx.x * KE;
+    for (int e = threadIdx.x; e < KE; e += BWD_THREADS) {
+        T v = acc[e];
+        for (int c = 1; c < copies; ++c) v += acc[c * KE + e];
+        out[e] = v;
+    }
+}
+
 // One chunk per block: `tiles` tiles of BWD_THREADS queries of one row, one
 // query per thread per tile. dq is skipped when null; DC: the coefficient
 // sums are wanted, written to partial[chunk] (K * 4(n-1) values).
@@ -483,94 +590,46 @@ ppoly_bwd_chunks(const T* __restrict__ x, const T* __restrict__ coeffs,
         if (qq[0] != qq[0]) idx[0] = n - 2;       // NaN sorts last
         const T t = qq[0] - xl[0];
         if (dq != nullptr && active) {
-            T d = T(0);
-#pragma unroll
-            for (int k = 0; k < K; ++k) {
-                T c0, c1, c2, c3;
-                tab.coeffs(sm + k * tab.table, idx[0], c0, c1, c2, c3);
-                const T dk = gk[k] * ((T(3) * c3 * t + T(2) * c2) * t + c1);
-                d = k == 0 ? dk : d + dk;
-            }
-            if (clamp)
-                d = d * ((qv > x0 && qv < xn) ? T(1)
-                         : (qv == x0 || qv == xn) ? T(0.5) : T(0));
+            T d = slope_sum<T, K>(
+                [&](int k, T& c0, T& c1, T& c2, T& c3) {
+                    tab.coeffs(sm + k * tab.table, idx[0], c0, c1, c2, c3);
+                }, gk, t);
+            if (clamp) d = d * clip_factor(qv, x0, xn);
             __stcs(dq + row * M + m, d);
         }
-        if (DC) {
-            const int ival = active ? idx[0] : -1;
-            const unsigned group = __match_any_sync(0xffffffffu, ival);
-            T s[K][4];
-#pragma unroll
-            for (int k = 0; k < K; ++k)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) s[k][j] = T(0);
-            unsigned rest = group;
-            // every lane walks its own group in ascending lane order; the
-            // loop runs to the largest group of the warp, all lanes together
-            while (__any_sync(0xffffffffu, rest != 0u)) {
-                const int src = rest ? __ffs(rest) - 1 : lane;
-                const T ts = __shfl_sync(0xffffffffu, t, src);
-#pragma unroll
-                for (int k = 0; k < K; ++k) {
-                    T p = __shfl_sync(0xffffffffu, gk[k], src);
-                    if (rest) {
-                        s[k][0] += p;
-                        p = mul_rn(p, ts);
-                        s[k][1] += p;
-                        p = mul_rn(p, ts);
-                        s[k][2] += p;
-                        p = mul_rn(p, ts);
-                        s[k][3] += p;
-                    }
-                }
-                rest &= rest - 1u;
-            }
-            const bool leader = active && lane == __ffs(group) - 1;
-            for (int r = 0; r < rounds; ++r) {
-                if (leader && warp / copies == r) {
-#pragma unroll
-                    for (int k = 0; k < K; ++k)
-#pragma unroll
-                        for (int j = 0; j < 4; ++j)
-                            mine[k * E + 4 * idx[0] + j] += s[k][j];
-                }
-                if (rounds > 1) __syncthreads();
-                else __syncwarp();
-            }
-        }
+        if (DC)
+            add_terms<T, K>(mine, E, rounds, copies, warp, lane, active,
+                            idx[0], t, gk);
     }
-    if (DC) {
-        __syncthreads();
-        T* out = partial + (int64_t)blockIdx.x * K * E;
-        for (int e = tid; e < K * E; e += BWD_THREADS) {
-            T v = acc[e];
-            for (int c = 1; c < copies; ++c) v += acc[c * K * E + e];
-            out[e] = v;
-        }
-    }
+    if (DC) write_partial(acc, partial, K * E, copies);
 }
 
 // dcoeffs[r] = the sum of the partials of the chunks that read table r, in
 // chunk order: 32 chunk lanes per element, then their sums in lane order.
+// SECOND: the second order's layout (0, S0, 2 S1, 3 S2) per interval, entry
+// j > 0 the sum of partial entry j - 1 times j (PyTorch's rounding of 3 S2).
 // grid (tables, ceil(KE / 32)), block (32, RED_LANES).
-template <typename T>
+template <typename T, bool SECOND>
 __global__ void __launch_bounds__(32 * RED_LANES)
 ppoly_bwd_reduce(const T* __restrict__ partial, T* __restrict__ dcoeffs,
                  int KE, int chunks, int per_row_coeffs, int64_t all_chunks) {
     __shared__ T lanes[RED_LANES][33];
     const int64_t r = blockIdx.x;
     const int e = blockIdx.y * 32 + threadIdx.x;
+    const int j = e & 3;
+    const int src = SECOND ? e - 1 : e;
     const int64_t c0 = per_row_coeffs ? r * chunks : 0;
     const int64_t cn = per_row_coeffs ? chunks : all_chunks;
     T s = T(0);
-    if (e < KE)
+    if (e < KE && (!SECOND || j > 0))
         for (int64_t c = threadIdx.y; c < cn; c += RED_LANES)
-            s += partial[(c0 + c) * KE + e];
+            s += partial[(c0 + c) * KE + src];
     lanes[threadIdx.y][threadIdx.x] = s;
     __syncthreads();
     if (threadIdx.y == 0 && e < KE) {
         T v = lanes[0][threadIdx.x];
         for (int y = 1; y < RED_LANES; ++y) v += lanes[y][threadIdx.x];
+        if (SECOND) v = j == 0 ? T(0) : j == 1 ? v : mul_rn(T(j), v);
         dcoeffs[r * KE + e] = v;
     }
 }
@@ -594,7 +653,7 @@ int launch_bwd_k(const T* x, const T* c, const T* q, const T* g, T* dq,
         const int KE = K * 4 * (n - 1);
         const dim3 rgrid((unsigned)(per_row_coeffs ? B : 1),
                          (unsigned)((KE + 31) / 32));
-        ppoly_bwd_reduce<T><<<rgrid, dim3(32, RED_LANES), 0, s>>>(
+        ppoly_bwd_reduce<T, false><<<rgrid, dim3(32, RED_LANES), 0, s>>>(
             partial, dc, KE, chunks, per_row_coeffs, grid);
     }
     return (int)cudaGetLastError();
@@ -643,6 +702,256 @@ int launch_bwd(const void* x, const void* coeffs, const void* q,
         case 4: return launch_bwd_dc<T, 4>(xt, ct, qt, gt, dqt, dct, pt, n, B,
                                            M, per_row_coeffs, clamp, tiles,
                                            chunks, copies, smem, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The second order: the derivatives of the backward above, in one pass.
+//
+// Neither TPU kernel had them: victor_tpu takes jax.hessian of ppoly_eval.
+// Given the backward's grad_out g and the cotangents u (B, M) of dq and V
+// (the coefficients' shape) of dcoeffs, either absent for 0, this is the
+// gradient of <u, dq> + <V, dcoeffs> to (coeffs, q, grad_out). With c(q)
+// the clip factor (1 without clamp), D = (c1, 2 c2, 3 c3, 0) the table of
+// p' and p_V the polynomial with coefficients V:
+//
+//   d/dg[k]   = u c(q) p_k'(qq) + p_Vk(qq)
+//   d/dq      = c(q) [c(q) sum_k u g_k p_k''(qq)] + c(q) sum_k g_k p_Vk'(qq)
+//   d/dcoeffs = (0, S0, 2 S1, 3 S2),  S = sum over each interval's queries
+//               of u c(q) g (1, t, t^2, t^3)
+//
+// d/dq and d/dg are NaN at an infinite query without clamp, where the
+// forward is NaN. kernels/ppoly.py::ppoly_eval_second_order_composed
+// computes the same terms with up to five launches of the two kernels above
+// on tables derived elementwise by PyTorch and about 30 elementwise ops
+// around them; this kernel gives its results bit for bit:
+// * One search per query by the backward's rule (a NaN query in interval
+//   n-2: the forward's terms are NaN there whatever the interval).
+// * D is derived in registers from the staged coefficients, rounded as
+//   PyTorch rounds it (2 c2 exact, 3 c3 one multiply); V is staged beside
+//   the table when given. The forward's values and the backward's
+//   derivative sums are the same device code (horner, slope_sum) on D and
+//   V, so nvcc contracts them into the same FMAs.
+// * Each product or sum that the composed path rounds as an op of its own
+//   (u c(q), u g, (u c(q)) g, c(q) times a backward's dq, the sums of two
+//   terms) is __dmul_rn / __dadd_rn (__f*_rn in f32), which nvcc never
+//   contracts.
+// * d/dcoeffs is the backward's reduction unchanged, with the weights
+//   (u c(q)) g in place of g: the wrapper passes the backward's plan for
+//   the same call (tiles, chunks, copies), so every sum runs in the same
+//   order, and the reduce writes (0, S0, 2 S1, 3 S2).
+// One launch per call, two with d/dcoeffs (chunks, then the reduce).
+//
+// Bound: bytes. Per query q, u and K g read, dq and K d/dg written ((3 + 2K)
+// * 8 B in f64), against one search and about 40 flops per channel.
+// Shared memory: the backward's (table, keys, copies of the sums), then V
+// from the next 16-byte boundary.
+
+template <typename T> __device__ __forceinline__ T add_rn(T a, T b);
+template <> __device__ __forceinline__ double add_rn<double>(double a,
+                                                             double b) {
+    return __dadd_rn(a, b);
+}
+template <> __device__ __forceinline__ float add_rn<float>(float a, float b) {
+    return __fadd_rn(a, b);
+}
+
+// One chunk per block, as ppoly_bwd_chunks. u null: no u terms (and no
+// d/dcoeffs); V null: no V terms; dq, dg null: not wanted.
+template <typename T, int K, bool DC>
+__global__ void __launch_bounds__(BWD_THREADS)
+ppoly_2nd_chunks(const T* __restrict__ x, const T* __restrict__ coeffs,
+                 const T* __restrict__ q, const T* __restrict__ g,
+                 const T* __restrict__ u, const T* __restrict__ V,
+                 T* __restrict__ dq, T* __restrict__ dg,
+                 T* __restrict__ partial, int n, int64_t M,
+                 int per_row_coeffs, int clamp, int tiles, int chunks,
+                 int copies) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    T* sm = reinterpret_cast<T*>(smem_raw);
+    const Table<T> tab(n);
+    const int E = tab.table;
+    T* acc = sm + K * E + tab.keys + 1;           // copies x K x E
+    constexpr int ALIGN = 16 / sizeof(T);
+    T* vt = sm + (K * E + tab.keys + 1 + (DC ? copies * K * E : 0) +
+                  ALIGN - 1) / ALIGN * ALIGN;     // V's K x E
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+    const int64_t row = blockIdx.x / chunks;
+    const int64_t m0 = (blockIdx.x - row * chunks) * (int64_t)tiles *
+                       BWD_THREADS;
+    const int64_t m1 = m0 + (int64_t)tiles * BWD_THREADS < M
+        ? m0 + (int64_t)tiles * BWD_THREADS : M;
+    const int64_t trow = (per_row_coeffs ? row : 0) * K * E;
+    tab.template stage<K, 2>(sm, x, coeffs + trow, tid, BWD_THREADS);
+    if (V != nullptr)
+        tab.template stage_channels<K, 2>(vt, V + trow, tid, BWD_THREADS);
+    if (DC)
+        for (int e = tid; e < copies * K * E; e += BWD_THREADS) acc[e] = T(0);
+    __syncthreads();
+
+    const T* key = sm + K * E;
+    const T x0 = key[0], xn = key[tab.keys];
+    const int rounds = BWD_WARPS / copies;
+    T* mine = acc + (warp % copies) * K * E;
+    for (int64_t base = m0; base < m1; base += BWD_THREADS) {   // uniform
+        const int64_t m = base + tid;
+        const bool active = m < m1;
+        const int64_t at = row * M + m;
+        const T qv = active ? __ldcs(q + at) : T(0);
+        const T uv = active && u != nullptr ? __ldcs(u + at) : T(0);
+        T gk[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+            gk[k] = active ? __ldcs(g + (row * K + k) * M + m) : T(0);
+        T qq[1] = {qv};
+        int idx[1];
+        T xl[1];
+        tab.template locate<K, 1>(sm, clamp, qq, idx, xl);
+        if (qq[0] != qq[0]) idx[0] = n - 2;       // NaN sorts last
+        const int i = idx[0];
+        const T t = qq[0] - xl[0];
+        const T cq = clamp ? clip_factor(qv, x0, xn) : T(1);
+        const T ucq = mul_rn(uv, cq);
+        // the derivative table D and V at this query's interval
+        const auto dtab = [&](int k, T& d0, T& d1, T& d2, T& d3) {
+            T c0, c1, c2, c3;
+            tab.coeffs(sm + k * E, i, c0, c1, c2, c3);
+            d0 = c1;
+            d1 = mul_rn(T(2), c2);
+            d2 = mul_rn(T(3), c3);
+            d3 = T(0);
+        };
+        const auto vtab = [&](int k, T& c0, T& c1, T& c2, T& c3) {
+            tab.coeffs(vt + k * E, i, c0, c1, c2, c3);
+        };
+        const bool nan_out = !clamp && isinf(qv);   // the forward is NaN
+        if (dq != nullptr && active) {
+            T d = T(0);
+            if (u != nullptr) {
+                T ug[K];
+#pragma unroll
+                for (int k = 0; k < K; ++k) ug[k] = mul_rn(uv, gk[k]);
+                d = slope_sum<T, K>(dtab, ug, t);
+                if (clamp) d = mul_rn(cq, d * cq);
+            }
+            if (V != nullptr) {
+                T dv = slope_sum<T, K>(vtab, gk, t);
+                if (clamp) dv = dv * cq;
+                d = u != nullptr ? add_rn(d, dv) : dv;
+            }
+            __stcs(dq + at, nan_out ? quiet_nan<T>() : d);
+        }
+        if (dg != nullptr && active) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+                T o = T(0);
+                if (u != nullptr) {
+                    T d0, d1, d2, d3;
+                    dtab(k, d0, d1, d2, d3);
+                    o = mul_rn(ucq, horner(d0, d1, d2, d3, t, qq[0]));
+                }
+                if (V != nullptr) {
+                    T c0, c1, c2, c3;
+                    vtab(k, c0, c1, c2, c3);
+                    const T pv = horner(c0, c1, c2, c3, t, qq[0]);
+                    o = u != nullptr ? add_rn(o, pv) : pv;
+                }
+                __stcs(dg + (row * K + k) * M + m,
+                       nan_out ? quiet_nan<T>() : o);
+            }
+        }
+        if (DC) {
+            T w[K];
+#pragma unroll
+            for (int k = 0; k < K; ++k) w[k] = mul_rn(ucq, gk[k]);
+            add_terms<T, K>(mine, E, rounds, copies, warp, lane, active, i, t,
+                            w);
+        }
+    }
+    if (DC) write_partial(acc, partial, K * E, copies);
+}
+
+template <typename T, int K, bool DC>
+int launch_2nd_k(const T* x, const T* c, const T* q, const T* g, const T* u,
+                 const T* V, T* dq, T* dg, T* dc, T* partial, int n,
+                 long long B, long long M, int per_row_coeffs, int clamp,
+                 int tiles, int chunks, int copies, int smem,
+                 cudaStream_t s) {
+    auto kernel = ppoly_2nd_chunks<T, K, DC>;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const long long grid = B * chunks;
+    kernel<<<(unsigned)grid, BWD_THREADS, smem, s>>>(
+        x, c, q, g, u, V, dq, dg, partial, n, M, per_row_coeffs, clamp, tiles,
+        chunks, copies);
+    if (DC) {
+        const int KE = K * 4 * (n - 1);
+        const dim3 rgrid((unsigned)(per_row_coeffs ? B : 1),
+                         (unsigned)((KE + 31) / 32));
+        ppoly_bwd_reduce<T, true><<<rgrid, dim3(32, RED_LANES), 0, s>>>(
+            partial, dc, KE, chunks, per_row_coeffs, grid);
+    }
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int K>
+int launch_2nd_dc(const T* x, const T* c, const T* q, const T* g, const T* u,
+                  const T* V, T* dq, T* dg, T* dc, T* partial, int n,
+                  long long B, long long M, int per_row_coeffs, int clamp,
+                  int tiles, int chunks, int copies, int smem,
+                  cudaStream_t s) {
+    if (dc != nullptr)
+        return launch_2nd_k<T, K, true>(x, c, q, g, u, V, dq, dg, dc, partial,
+                                        n, B, M, per_row_coeffs, clamp, tiles,
+                                        chunks, copies, smem, s);
+    return launch_2nd_k<T, K, false>(x, c, q, g, u, V, dq, dg, dc, partial, n,
+                                     B, M, per_row_coeffs, clamp, tiles,
+                                     chunks, copies, smem, s);
+}
+
+template <typename T>
+int launch_2nd(const void* x, const void* coeffs, const void* q,
+               const void* g, const void* u, const void* V, void* dq,
+               void* dg, void* dcoeffs, void* partial, int n, int K,
+               long long B, long long M, int per_row_coeffs, int clamp,
+               int tiles, int chunks, int copies, int smem, void* stream) {
+    const T* xt = static_cast<const T*>(x);
+    const T* ct = static_cast<const T*>(coeffs);
+    const T* qt = static_cast<const T*>(q);
+    const T* gt = static_cast<const T*>(g);
+    const T* ut = static_cast<const T*>(u);
+    const T* vt = static_cast<const T*>(V);
+    T* dqt = static_cast<T*>(dq);
+    T* dgt = static_cast<T*>(dg);
+    T* dct = static_cast<T*>(dcoeffs);
+    T* pt = static_cast<T*>(partial);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (tiles < 1 || chunks < 1 || copies < 1 || BWD_WARPS % copies != 0 ||
+        (dct != nullptr && (pt == nullptr || ut == nullptr)) ||
+        B * chunks > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    switch (K) {
+        case 1: return launch_2nd_dc<T, 1>(xt, ct, qt, gt, ut, vt, dqt, dgt,
+                                           dct, pt, n, B, M, per_row_coeffs,
+                                           clamp, tiles, chunks, copies, smem,
+                                           s);
+        case 2: return launch_2nd_dc<T, 2>(xt, ct, qt, gt, ut, vt, dqt, dgt,
+                                           dct, pt, n, B, M, per_row_coeffs,
+                                           clamp, tiles, chunks, copies, smem,
+                                           s);
+        case 3: return launch_2nd_dc<T, 3>(xt, ct, qt, gt, ut, vt, dqt, dgt,
+                                           dct, pt, n, B, M, per_row_coeffs,
+                                           clamp, tiles, chunks, copies, smem,
+                                           s);
+        case 4: return launch_2nd_dc<T, 4>(xt, ct, qt, gt, ut, vt, dqt, dgt,
+                                           dct, pt, n, B, M, per_row_coeffs,
+                                           clamp, tiles, chunks, copies, smem,
+                                           s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -697,6 +1006,35 @@ extern "C" int ppoly_eval_backward_f32(
     return launch_bwd<float>(x, coeffs, q, g, dq, dcoeffs, partial, n, K, B,
                              M, per_row_coeffs, clamp, tiles, chunks, copies,
                              smem, stream);
+}
+
+// The second order (one call launches the chunk kernel and, when dcoeffs is
+// wanted, the reduce). u, V null: no such cotangent; dq, dg, dcoeffs null:
+// not wanted (dcoeffs needs u and a partial buffer of B * chunks * K *
+// 4(n-1) elements). The caller validates shapes and passes the backward's
+// plan for the same call, with dynamic shared memory for V when it is
+// given. Returns cudaGetLastError() after the launches, or
+// cudaErrorInvalidValue for a plan the kernel does not take.
+extern "C" int ppoly_eval_second_order_f64(
+        const void* x, const void* coeffs, const void* q, const void* g,
+        const void* u, const void* V, void* dq, void* dg, void* dcoeffs,
+        void* partial, int n, int K, long long B, long long M,
+        int per_row_coeffs, int clamp, int tiles, int chunks, int copies,
+        int smem, void* stream) {
+    return launch_2nd<double>(x, coeffs, q, g, u, V, dq, dg, dcoeffs, partial,
+                              n, K, B, M, per_row_coeffs, clamp, tiles,
+                              chunks, copies, smem, stream);
+}
+
+extern "C" int ppoly_eval_second_order_f32(
+        const void* x, const void* coeffs, const void* q, const void* g,
+        const void* u, const void* V, void* dq, void* dg, void* dcoeffs,
+        void* partial, int n, int K, long long B, long long M,
+        int per_row_coeffs, int clamp, int tiles, int chunks, int copies,
+        int smem, void* stream) {
+    return launch_2nd<float>(x, coeffs, q, g, u, V, dq, dg, dcoeffs, partial,
+                             n, K, B, M, per_row_coeffs, clamp, tiles, chunks,
+                             copies, smem, stream);
 }
 
 // What the backward's plan needs of this kernel, in g[0..2]: BWD_THREADS,

@@ -21,9 +21,12 @@ tensors and `ppoly_eval_backward_plain` on CPU tensors: dq, and dcoeffs
 summed over each table's queries in a fixed order. x takes no gradient.
 
 A backward that records a graph (create_graph=True, as a Hessian needs)
-goes through `_PpolyEvalBackward`, whose own backward composes the second
-derivatives from launches of the same two kernels on tables derived
-elementwise (its docstring has the algebra). A third order raises.
+goes through `_PpolyEvalBackward`, whose own backward is
+`ppoly_eval_second_order`: on CUDA tensors the fused second-order kernel of
+the same source (`ppoly_eval_second_order_cuda`, one launch per call, two
+with d/dcoeffs), on CPU tensors the composition of the plain versions on
+tables derived elementwise (`ppoly_eval_second_order_composed`, whose
+docstring has the algebra). A third order raises.
 """
 
 from __future__ import annotations
@@ -43,7 +46,9 @@ LAUNCHES = 0
 LAUNCHES_MULTI = 0
 #: launches of the backward kernel (one per backward call)
 LAUNCHES_BWD = 0
-#: of LAUNCHES and LAUNCHES_BWD, those made for second derivatives
+#: launches made for second derivatives: the fused kernel's (its chunk
+#: kernel and, with d/dcoeffs, its reduce), and the forward and backward
+#: launches of the composed path
 LAUNCHES_2ND = 0
 
 MAX_KNOTS = 1024          # with K = 1: 40,936 bytes of table in f64, < 48 KB
@@ -60,8 +65,11 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 7 +
                   ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 BWD_SMEM_BUDGET = 48 * 1024   # the backward halves its accumulator copies
                               # until table + copies fit in this
+_2ND_ARGTYPES = ([ctypes.c_void_p] * 10 +
+                 [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_longlong] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 _DTYPES = {torch.float32: 4, torch.float64: 8}     # dtype -> itemsize
-_ENTRIES: dict = {}       # (dtype, backward) -> ctypes function
+_ENTRIES: dict = {}       # (dtype, kind) -> ctypes function
 _GEOMETRY: dict = {}      # device index -> Geometry
 
 
@@ -99,16 +107,20 @@ class BackwardPlan(NamedTuple):
     smem: int
 
 
-def _entry(dtype: torch.dtype, backward: bool = False):
-    fn = _ENTRIES.get((dtype, backward))
+_KINDS = {'forward': ('ppoly_eval_', _ARGTYPES),
+          'backward': ('ppoly_eval_backward_', _BWD_ARGTYPES),
+          'second_order': ('ppoly_eval_second_order_', _2ND_ARGTYPES)}
+
+
+def _entry(dtype: torch.dtype, kind: str = 'forward'):
+    fn = _ENTRIES.get((dtype, kind))
     if fn is None:
-        lib = _build.load('ppoly_eval')
-        name = ('ppoly_eval_backward_' if backward else 'ppoly_eval_') + \
-            ('f64' if dtype == torch.float64 else 'f32')
-        fn = getattr(lib, name)
-        fn.argtypes = _BWD_ARGTYPES if backward else _ARGTYPES
+        prefix, argtypes = _KINDS[kind]
+        fn = getattr(_build.load('ppoly_eval'),
+                     prefix + ('f64' if dtype == torch.float64 else 'f32'))
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _ENTRIES[(dtype, backward)] = fn
+        _ENTRIES[(dtype, kind)] = fn
     return fn
 
 
@@ -358,7 +370,7 @@ def ppoly_eval_backward_cuda(x, coeffs, q, grad_out, clamp: bool = True,
             None if partial is None else partial.data_ptr(), n, K, B, M,
             int(coeffs.shape[0] > 1), int(clamp), plan.tiles, plan.chunks,
             plan.copies, plan.smem)
-    fn = _entry(q.dtype, backward=True)
+    fn = _entry(q.dtype, 'backward')
     if index == torch.cuda.current_device():
         err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
@@ -431,14 +443,131 @@ def _derivative_table(coeffs):
                        -1)
 
 
+# ---------------------------------------------------------------------------
+# The second order
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=1024)
+def second_order_plan(B: int, M: int, K: int, n: int, itemsize: int,
+                      want_dcoeffs: bool, with_v: bool,
+                      geo: BackwardGeometry) -> BackwardPlan:
+    """The launch of one call of the fused second-order kernel: the
+    backward's plan for the same call (`backward_plan`: its tiles, chunks
+    and copies, so that d/dcoeffs sums in the backward's order), with V's
+    table after its shared memory, from the next 16-byte boundary, when
+    `with_v`. Past 48 KB the kernel opts in to more dynamic shared memory;
+    at most the backward's 96 KB and a 48 KB V fit the H100's 227 KB."""
+    plan = backward_plan(B, M, K, n, itemsize, want_dcoeffs, geo)
+    if not with_v:
+        return plan
+    return plan._replace(smem=-(-plan.smem // VECTOR_BYTES) * VECTOR_BYTES +
+                         4 * K * (n - 1) * itemsize)
+
+
+def check_second_order_args(x, coeffs, q, grad_out, u, V) -> int:
+    """`check_grad_args`, and raise on cotangents the fused kernel does not
+    take: u (q's shape) and V (the coefficients' shape), each None or of
+    q's dtype and contiguous. Returns K."""
+    K = check_grad_args(x, coeffs, q, grad_out)
+    for name, a, want in (('u', u, q), ('V', V, coeffs)):
+        if a is None:
+            continue
+        if a.shape != want.shape or a.dtype != q.dtype:
+            raise ValueError(f'{name} must be {tuple(want.shape)} {q.dtype};'
+                             f' got {tuple(a.shape)} {a.dtype}')
+        if not a.is_contiguous():
+            raise ValueError(f'ppoly_eval_second_order_cuda: {name} must be '
+                             'contiguous')
+    return K
+
+
+def ppoly_eval_second_order_cuda(x, coeffs, q, grad_out, u, V,
+                                 clamp: bool = True, want_coeffs: bool = True,
+                                 want_q: bool = True,
+                                 want_grad_out: bool = True):
+    """Launch the fused second-order kernel on the current stream (no
+    synchronisation): `ppoly_eval_second_order_composed`'s terms, bit for
+    bit, from one pass over the queries, one launch (two with d/dcoeffs:
+    the chunks, then the reduce). Returns (d_coeffs, d_q, d_grad_out), None
+    where not asked for or zero."""
+    global LAUNCHES_2ND
+    K = check_second_order_args(x, coeffs, q, grad_out, u, V)
+    dev = q.device
+    if not (dev.type == 'cuda' and all(
+            a.device == dev for a in (x, coeffs, grad_out, u, V)
+            if a is not None)):
+        raise ValueError('ppoly_eval_second_order_cuda needs every tensor on '
+                         f'one CUDA device; got q on {dev}')
+    want_c = want_coeffs and u is not None
+    any_u_v = u is not None or V is not None
+    d_c = torch.empty_like(coeffs) if want_c else None
+    d_q = torch.empty_like(q) if want_q and any_u_v else None
+    d_g = torch.empty_like(grad_out) if want_grad_out and any_u_v else None
+    B, M = q.shape
+    if B * M == 0 or (d_c is None and d_q is None and d_g is None):
+        if d_c is not None:
+            d_c.zero_()
+        return d_c, d_q, d_g
+    n = x.shape[0]
+    index = dev.index
+    use_v = V is not None and (d_q is not None or d_g is not None)
+    plan = second_order_plan(B, M, K, n, _DTYPES[q.dtype], want_c, use_v,
+                             _backward_geometry(index))
+    partial = torch.empty(B * plan.chunks * K * 4 * (n - 1), dtype=q.dtype,
+                          device=dev) if want_c else None
+
+    def ptr(a):
+        return None if a is None else a.data_ptr()
+    args = (x.data_ptr(), coeffs.data_ptr(), q.data_ptr(),
+            grad_out.data_ptr(), ptr(u), ptr(V) if use_v else None, ptr(d_q),
+            ptr(d_g), ptr(d_c), ptr(partial), n, K, B, M,
+            int(coeffs.shape[0] > 1), int(clamp), plan.tiles, plan.chunks,
+            plan.copies, plan.smem)
+    fn = _entry(q.dtype, 'second_order')
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError('ppoly_eval second-order kernel launch failed: '
+                           f'CUDA error {err}')
+    LAUNCHES_2ND += 1 + want_c
+    return d_c, d_q, d_g
+
+
 def ppoly_eval_second_order(x, coeffs, q, grad_out, u, V, clamp: bool = True,
                             want_coeffs: bool = True, want_q: bool = True,
                             want_grad_out: bool = True):
+    """The second derivatives of `ppoly_eval` (the gradient of
+    <u, dq> + <V, dcoeffs> to (coeffs, q, grad_out); the algebra is in
+    `ppoly_eval_second_order_composed`), by device: the fused kernel
+    (`ppoly_eval_second_order_cuda`) on CUDA tensors, with u and V made
+    contiguous (autograd may hand over expanded cotangents), and the
+    composition of the plain versions on CPU tensors. Returns (d_coeffs,
+    d_q, d_grad_out), None where not asked for or zero."""
+    if q.is_cuda:
+        return ppoly_eval_second_order_cuda(
+            x, coeffs, q, grad_out, None if u is None else u.contiguous(),
+            None if V is None else V.contiguous(), clamp, want_coeffs, want_q,
+            want_grad_out)
+    return ppoly_eval_second_order_composed(x, coeffs, q, grad_out, u, V,
+                                            clamp, want_coeffs, want_q,
+                                            want_grad_out)
+
+
+def ppoly_eval_second_order_composed(x, coeffs, q, grad_out, u, V,
+                                     clamp: bool = True,
+                                     want_coeffs: bool = True,
+                                     want_q: bool = True,
+                                     want_grad_out: bool = True):
     """The second derivatives of `ppoly_eval`: the gradient of
     <u, dq> + <V, dcoeffs> to (coeffs, q, grad_out), where (dq, dcoeffs) is
     the backward of `ppoly_eval` with grad_out g, and u (q's shape) and V
     (the coefficients' shape) are their cotangents, either None for 0.
     Returns (d_coeffs, d_q, d_grad_out), None where not asked for or zero.
+    `ppoly_eval_second_order` takes this path on CPU tensors; on CUDA
+    tensors the fused kernel computes the same terms bit for bit.
 
     With c(q) the clip factor (`clip_factor`; 1 without clamp), D the
     derivative table (c1, 2 c2, 3 c3, 0) and p_V the polynomial with
