@@ -221,7 +221,33 @@ result line is printed):
    defaults under `--sampler smc` and with 30 + 30 steps under `--sampler
    hmc`, each with CUDA_VISIBLE_DEVICES=0 and then with every card
    visible: the CLI meshes SMC over every card and keeps HMC on one; the
-   printed results must agree, and the seconds are printed.
+   printed results must agree, and the seconds are printed;
+17. the validation tools (tools/*_torch.py), f64, exact modes where the
+   tool pins them:
+   a. the grid quadrature's core (validate_posterior_torch.py) at
+      QUAD_SMOKE_NGRID points per axis on the card against victor_tpu's lnL
+      at every point, moments and logZ (QUAD_SMOKE_*, 1e-9 relative), 3
+      ppoly_eval launches per chunk (the tool's blocks of n * n * 8
+      points in chunks of at most 128: 6 launches at n = 3, 39,366 at
+      n = 36); the kernel held against its
+      plain version at every lookup of one chunk of 128 of the full grid,
+      timed (the phase's row of the kernels line);
+   `--validate` runs phases 2 and 17 alone, in full: a; the forward,
+   backward and second-order kernels at the calls of the coverage tool's
+   fit of its first mock, held against their plain versions and timed;
+   b. the full quadrature (VALIDATE_NGRID points per axis) alone on the
+      card: every lnL finite, 3 launches per chunk, the moments within
+      VALIDATE_MEAN_TOL sigma and VALIDATE_STD_TOL of
+      tools/validate_posterior.py's recorded ones (VALIDATE_MEAN,
+      VALIDATE_STD), logZ within VALIDATE_LOGZ_TOL of QUAD_LOGZ;
+   c-e. the other tools at their full default sizes, each a subprocess
+      with --device cuda in three lanes beside each other
+      (VALIDATE_LANES): the exact-against-fast parity of streaming,
+      dispersion and the ESM (3 seeds), the tension probe (control and
+      injection), `coverage_test_torch.py --mocks 60` and `--method smc
+      --mocks 20`; every command must exit 0 with its verdict lines, and
+      the coverage tool's forward, backward and second-order launches
+      (counted in its process) go into the kernels line.
 
 Before them the script prints its own wall time. The last two lines are a
 JSON summary of the kernels (device-only `ms`, `host_us`; the sampler
@@ -820,6 +846,88 @@ SCALE_SMC = (256, 2)
 SCALE_TIMED_N = 4096
 SCALE_TOL = 1e-12             # sharded against batched, relative
 SCALE_RUN_TOL = 5e-6          # a mesh run against its unsharded run
+# Phase 17: the validation tools (tools/*_torch.py). 17a: the quadrature
+# tool's core (tools/validate_posterior_torch.py) at QUAD_SMOKE_NGRID points
+# per axis (81 points, f64, exact modes, chunk 128) on the BOSS data under
+# configs/boss_sampling_config.yaml's priors: victor_tpu's lnL at every grid
+# point and the quadrature's moments (NAMES order) and logZ, on the CPU in
+# f64 at full width, recomputed and compared with these literals by
+# tests/test_torch_post.py::test_chip_smoke_quad_smoke_goldens_match_victor_tpu
+QUAD_SMOKE_NGRID = 3
+QUAD_SMOKE_LNL = [
+    256.9948009604433, 274.0211609546941, 263.27628865707766,
+    252.9980998937714, 271.0493678081486, 262.09477933505775,
+    234.39848394788962, 253.42741284941883, 247.30550247334554,
+    253.39363034203782, 276.7616196513221, 271.63330563350917,
+    252.913409730102, 276.3101398000559, 272.0407745935946,
+    240.01364140308473, 263.0270468983993, 260.28402727448054,
+    235.3859290226092, 262.557257748566, 262.8126845374081,
+    237.2064366112896, 263.8708265480306, 264.4163832456359,
+    229.0093374699416, 254.34311782317704, 255.3344944220359,
+    269.2355014640204, 273.76167698676534, 252.30324102456322,
+    276.1232406115642, 281.82575322235493, 261.34124440399813,
+    270.5926851206655, 278.3545700984224, 260.52502283916687,
+    265.95626450186114, 277.4981846596254, 261.7958164112468,
+    274.8989277686987, 286.90532336444704, 271.5916334353029,
+    273.6911226270919, 286.5578063016001, 272.8799554638015,
+    251.9479352077075, 268.91396116051743, 259.5742581377198,
+    261.58853289500706, 278.65925169609784, 269.40014921764714,
+    262.91604486147145, 279.954524762382, 271.51331375280535,
+    242.89467806984555, 237.62207818532391, 210.0230297639444,
+    260.5475704546998, 255.52265450256138, 227.42099197943233,
+    270.36680782786163, 266.94743708686246, 239.9816466062618,
+    240.2024033708505, 241.72547165243068, 219.38001939593215,
+    258.7790062586358, 260.1925848114751, 237.09486149153355,
+    271.41923219633634, 273.6313721180609, 251.0617181813567,
+    232.4960470672038, 240.24963858699317, 224.34211379376325,
+    250.59829334711026, 258.13975935355603, 241.4200288177003,
+    263.7706113638868, 271.52063151991206, 254.9135652855788]
+QUAD_SMOKE_MEAN = [0.5999904582875343, 0.3648629483894558, 426.58713399965444,
+                   1.0099992064631482]
+QUAD_SMOKE_STD = [0.0015951532052708086, 0.0030053751028568123,
+                  61.558592934119766, 0.000212298830534989]
+QUAD_SMOKE_LOGZ = 280.0252178253123
+QUAD_SMOKE_TOL = 1e-9         # relative, on lnL, the moments and logZ
+# 17b (--validate): the full quadrature, held to the moments that
+# tools/validate_posterior.py recorded (its docstring, NAMES order) within
+# VALIDATE_MEAN_TOL sigma and VALIDATE_STD_TOL relative, its logZ to
+# QUAD_LOGZ within VALIDATE_LOGZ_TOL
+VALIDATE_NGRID = 36
+VALIDATE_MEAN = [0.5725, 0.3669, 417.97, 1.0091]
+VALIDATE_STD = [0.0542, 0.0104, 44.30, 0.0106]
+VALIDATE_MEAN_TOL = 0.02
+VALIDATE_STD_TOL = 0.02
+VALIDATE_LOGZ_TOL = 0.05
+# 17c-e (--validate): the other tools at their full default sizes, each a
+# subprocess on the card, in lanes that run beside each other (a lane's
+# commands one after another): host-bound and device-bound runs overlap
+VALIDATE_LANES = [
+    [['validate_dispersion_fast_torch.py', '--model', 'esm', '--seeds', '3'],
+     ['validate_dispersion_fast_torch.py', '--model', 'streaming']],
+    [['tension_injection_probe_torch.py'],
+     ['validate_dispersion_fast_torch.py', '--model', 'dispersion']],
+    [['coverage_test_torch.py', '--mocks', '60'],
+     ['coverage_test_torch.py', '--method', 'smc', '--mocks', '20']],
+]
+VALIDATE_TIMEOUT = 3300       # seconds for all lanes together
+# runs a tool as __main__ and prints the port's kernel launch counters as
+# its last line when it exits
+LAUNCH_COUNTING_RUNNER = '''
+import atexit, json, runpy, sys
+sys.argv = sys.argv[1:]
+
+
+def report():
+    from victor_tpu_torch.kernels import dispersion, ppoly
+    print(json.dumps({'launches': {
+        'ppoly_eval': ppoly.LAUNCHES, 'backward': ppoly.LAUNCHES_BWD,
+        'second_order': ppoly.LAUNCHES_2ND,
+        'dispersion_final': dispersion.LAUNCHES}}), flush=True)
+
+
+atexit.register(report)
+runpy.run_path(sys.argv[0], run_name='__main__')
+'''
 
 
 def check(ok, what):
@@ -4090,6 +4198,299 @@ def class_surface(bundle, cfg, esm_bundle, esm_cfg):
         f64)]
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the validation tools
+# ---------------------------------------------------------------------------
+
+def tool(name):
+    """A module of tools/: the port's validation tools."""
+    import importlib
+    path = os.path.join(REPO, 'tools')
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def quadrature(bundle, n):
+    """lnL at the n**4 points of the quadrature tool's grid (exact modes,
+    chunk 128, f64) on the card, its ppoly_eval launches, its seconds, and
+    the tool's moments, marginal edge masses and logZ under the priors of
+    configs/boss_sampling_config.yaml."""
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.sampling.priors import ParamSpace
+    vp = tool('validate_posterior_torch')
+    axes = vp.quadrature_axes(n)
+    lnl_of = vp.grid_loglike(bundle, 'cuda')
+    torch.cuda.synchronize()
+    ppoly.LAUNCHES = 0
+    t0 = time.perf_counter()
+    lnl = vp.evaluate_grid(lnl_of, vp.quadrature_grid(axes), n)
+    seconds = time.perf_counter() - t0
+    launches = ppoly.LAUNCHES
+    # the tool evaluates blocks of n * n * 8 points in chunks of 128
+    total, block = n ** 4, n * n * 8
+    chunks = sum(-(-min(block, total - i) // vp.CHUNK)
+                 for i in range(0, total, block))
+    check(launches == 3 * chunks,
+          f'17: ppoly_eval launches of the {total:,}-point quadrature: '
+          f'{launches:,} (3 per chunk of at most {vp.CHUNK}: {chunks:,} '
+          f'chunks in blocks of {block:,} points)')
+    space = ParamSpace(load_config('boss_sampling_config.yaml')['params'])
+    return (lnl, launches, seconds) + vp.grid_quadrature(lnl, axes, space)
+
+
+def quadrature_smoke(bundle):
+    """Phase 17a: the quadrature tool's core at QUAD_SMOKE_NGRID against
+    victor_tpu's values (QUAD_SMOKE_*). Returns its ppoly_eval launches."""
+    import numpy as np
+    lnl, launches, _, mean, std, _, logz = quadrature(bundle,
+                                                      QUAD_SMOKE_NGRID)
+    for what, got, want in (('lnL', lnl, QUAD_SMOKE_LNL),
+                            ('means', mean, QUAD_SMOKE_MEAN),
+                            ('stds', std, QUAD_SMOKE_STD),
+                            ('logZ', [logz], [QUAD_SMOKE_LOGZ])):
+        err = float(np.max(np.abs(np.asarray(got) / np.asarray(want) - 1)))
+        check(err <= QUAD_SMOKE_TOL,
+              f'17a: the {QUAD_SMOKE_NGRID ** 4}-point quadrature\'s {what} '
+              f'against victor_tpu\'s: max relative |d| {err:.3e} '
+              f'(<= {QUAD_SMOKE_TOL:g})')
+    return launches
+
+
+def quadrature_row(bundle, which, launches):
+    """The kernels line's row of the quadrature: every lookup of one chunk
+    of 128 points of the --ngrid 36 grid (the chunk holding its middle
+    point) against the plain version, timed (`sampler_kernel_case`: the
+    largest with L2 cold and warm)."""
+    import torch
+    vp = tool('validate_posterior_torch')
+    grid = vp.quadrature_grid(vp.quadrature_axes(VALIDATE_NGRID))
+    start = len(grid) // 2 // vp.CHUNK * vp.CHUNK
+    lnl_of = vp.grid_loglike(bundle, 'cuda')
+    result, _ = sampler_kernel_case(
+        bundle, None, what=f'a chunk of {vp.CHUNK} of the quadrature',
+        run=lambda: lnl_of(grid[start:start + vp.CHUNK]))
+    return kernel_row(f'ppoly_eval, grid quadrature ({which}; exact modes, '
+                      f'chunks of {vp.CHUNK}; launches: 3 per chunk)',
+                      'ppoly_eval.cu', 'victor_tpu/ops/splines.py:537',
+                      launches, result, torch.float64)
+
+
+def coverage_kernel_cases():
+    """The spline lookup's forward, backward and second-order kernels at
+    their calls in the coverage tool's fit of its first mock (find_map of
+    `coverage_test_torch.py --mocks 60`: 4 starts through Adam, then
+    Newton's Hessians), each held against its plain version and timed at
+    its largest call. Returns {kernel: timed result}."""
+    import inspect
+
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.ops import splines
+    cov = tool('coverage_test_torch')
+    bundle, _, _ = cov.load_model('template', 'cuda')
+    real = {'forward': ppoly.ppoly_eval_cuda,
+            'backward': ppoly.ppoly_eval_backward_cuda,
+            'second_order': ppoly.ppoly_eval_second_order}
+    first = {kind: {} for kind in real}
+
+    def recorder(kind):
+        sig = inspect.signature(real[kind])
+
+        def record(*args, **kw):
+            bound = sig.bind(*args, **kw)
+            bound.apply_defaults()
+            call = tuple(a.detach() if torch.is_tensor(a) else a
+                         for a in bound.args)
+            key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                        for a in call)
+            first[kind].setdefault(key, call)
+            return real[kind](*args, **kw)
+        return record
+
+    splines.ppoly_eval_cuda = ppoly.ppoly_eval_cuda = recorder('forward')
+    ppoly.ppoly_eval_backward_cuda = recorder('backward')
+    ppoly.ppoly_eval_second_order = recorder('second_order')
+    try:
+        cov.run_coverage(bundle, n_mocks=1, device='cuda')
+    finally:
+        splines.ppoly_eval_cuda = ppoly.ppoly_eval_cuda = real['forward']
+        ppoly.ppoly_eval_backward_cuda = real['backward']
+        ppoly.ppoly_eval_second_order = real['second_order']
+    torch.cuda.synchronize()
+    check(all(first.values()), 'the coverage fit of one mock called the '
+          'forward, backward and second-order kernels: '
+          + ', '.join(f'{k} at {len(v)} shape(s)' for k, v in first.items()))
+
+    def largest(kind):
+        return max(first[kind].values(),
+                   key=lambda c: (c[2].numel(), c[1].numel()))
+
+    x, c, q, clamp = largest('forward')
+    label = (f'ppoly_eval in the coverage fit: coeffs={tuple(c.shape)} '
+             f'q={tuple(q.shape)} clamp={clamp}')
+    err = compare_outputs(label, ppoly.ppoly_eval_cuda(x, c, q, clamp),
+                          ppoly.ppoly_eval_plain(x, c, q, clamp), q.dtype)
+    K = c.shape[1] if c.ndim == 4 else 1
+    cases = {'forward': timed(
+        label, err, lambda: ppoly.ppoly_eval_cuda(x, c, q, clamp),
+        lambda: ppoly.ppoly_eval_plain(x, c, q, clamp),
+        nbytes(x, c, q, q.new_empty(q.shape)),
+        q.numel() * ppoly_ops(x.shape[0], K))}
+    x, c, q, g, clamp, want_dq, want_dc = largest('backward')
+    cases['backward'] = compare_backward(
+        f'ppoly_eval backward in the coverage fit: coeffs={tuple(c.shape)} '
+        f'q={tuple(q.shape)} dq={want_dq} dcoeffs={want_dc}', x, c, q, g,
+        clamp, want_dq, want_dc, time_it=True)
+    x, c, q, g, u, V, clamp, *wants = largest('second_order')
+    cases['second_order'] = compare_second_order(
+        f'second order in the coverage fit: coeffs={tuple(c.shape)} '
+        f'q={tuple(q.shape)} wants={tuple(wants)}', x, c, q, g, u, V, clamp,
+        tuple(wants), time_it=True)
+    return cases
+
+
+def run_lanes(tmp):
+    """Phases 17c-e: VALIDATE_LANES's commands with --device cuda, each a
+    subprocess through LAUNCH_COUNTING_RUNNER, the lanes beside each other;
+    each command's stdout printed when it ends. Returns {command: (exit
+    code, stdout lines, launch counters, seconds)}."""
+    import threading
+    results = {}
+    lock = threading.Lock()
+    deadline = time.monotonic() + VALIDATE_TIMEOUT
+
+    def lane(i, commands):
+        for j, cmd in enumerate(commands):
+            name = ' '.join(cmd)
+            argv = [sys.executable, '-c', LAUNCH_COUNTING_RUNNER,
+                    os.path.join(REPO, 'tools', cmd[0])] + cmd[1:] + \
+                ['--device', 'cuda']
+            out_path = os.path.join(tmp, f'lane{i}_{j}.out')
+            err_path = os.path.join(tmp, f'lane{i}_{j}.err')
+            t0 = time.perf_counter()
+            with open(out_path, 'w') as out, open(err_path, 'w') as err:
+                try:
+                    rc = subprocess.run(
+                        argv, stdout=out, stderr=err, cwd=REPO,
+                        timeout=max(1.0, deadline - time.monotonic())
+                    ).returncode
+                except subprocess.TimeoutExpired:
+                    rc = 'timeout'
+            seconds = time.perf_counter() - t0
+            with open(out_path) as f:
+                lines = f.read().splitlines()
+            counts = [json.loads(ln)['launches'] for ln in lines
+                      if ln.startswith('{"launches"')]
+            with lock:
+                results[name] = (rc, lines, counts[-1] if counts else None,
+                                 seconds)
+                print(f'  17: tools/{name} --device cuda: exit {rc} after '
+                      f'{seconds:.1f} s (lane {i})', flush=True)
+                for ln in lines:
+                    print(f'    {ln}', flush=True)
+                if rc != 0:
+                    with open(err_path) as f:
+                        for ln in f.read().splitlines()[-40:]:
+                            print(f'    stderr: {ln}', flush=True)
+
+    threads = [threading.Thread(target=lane, args=(i, cmds))
+               for i, cmds in enumerate(VALIDATE_LANES)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return results
+
+
+def validate(bundle, card):
+    """Phase 17 in full (`--validate`): 17a; the coverage fit's kernel
+    cases and the quadrature's row timed on an idle card; 17b, the full
+    quadrature, alone; then 17c-e in lanes. Every result is printed before
+    the first failed check raises. Returns the kernels line's rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    f64 = torch.float64
+    print('validation tools: the grid quadrature at ngrid '
+          f'{QUAD_SMOKE_NGRID} (17a)', flush=True)
+    quadrature_smoke(bundle)
+    print('validation tools: the kernels at the coverage fit\'s calls',
+          flush=True)
+    cases = coverage_kernel_cases()
+    print(f'validation tools: the full quadrature, ngrid {VALIDATE_NGRID} '
+          '(17b), alone on the card', flush=True)
+    lnl, launches, seconds, mean, std, edge, logz = quadrature(
+        bundle, VALIDATE_NGRID)
+    vp = tool('validate_posterior_torch')
+    print(f'  17b ({card}): {len(lnl):,} evaluations in {seconds:.2f} s '
+          f'({len(lnl) / seconds:,.1f} evals/s, f64, exact modes, chunk '
+          f'{vp.CHUNK}), {launches:,} ppoly_eval launches', flush=True)
+    for line in vp.report_lines(mean, std, edge, logz):
+        print(f'    {line}', flush=True)
+    print('  17b: ' + json.dumps({
+        'mean': mean.tolist(), 'std': std.tolist(), 'edge': edge.tolist(),
+        'logz': logz, 'finite': bool(np.isfinite(lnl).all())}), flush=True)
+    rows = [quadrature_row(bundle, f'17b: ngrid {VALIDATE_NGRID}', launches)]
+    print('validation tools: the other tools in lanes (17c-e)', flush=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = run_lanes(tmp)
+    print(f'  17c-e ({card}): {time.perf_counter() - t0:.1f} s for all '
+          'lanes', flush=True)
+
+    check(bool(np.isfinite(lnl).all()), '17b: every lnL finite')
+    for k, name in enumerate(NAMES):
+        dm = abs(mean[k] - VALIDATE_MEAN[k]) / VALIDATE_STD[k]
+        ds = abs(std[k] - VALIDATE_STD[k]) / VALIDATE_STD[k]
+        check(dm < VALIDATE_MEAN_TOL and ds < VALIDATE_STD_TOL,
+              f'17b: {name} {mean[k]:.6g} +/- {std[k]:.6g} against '
+              f'tools/validate_posterior.py\'s {VALIDATE_MEAN[k]} +/- '
+              f'{VALIDATE_STD[k]}: |d mean| {dm:.4f} sigma (< '
+              f'{VALIDATE_MEAN_TOL}), |d sigma| / sigma {ds:.4f} (< '
+              f'{VALIDATE_STD_TOL})')
+    check(abs(logz - QUAD_LOGZ) < VALIDATE_LOGZ_TOL,
+          f'17b: logZ {logz:.4f} against {QUAD_LOGZ} (|d| < '
+          f'{VALIDATE_LOGZ_TOL})')
+    for name, (rc, lines, counts, seconds) in runs.items():
+        check(rc == 0 and counts is not None,
+              f'17: tools/{name} exited {rc} after {seconds:.1f} s, its '
+              'launches counted')
+    for name, (rc, lines, counts, seconds) in runs.items():
+        if name.startswith('tension'):
+            cases_ok = [json.loads(ln)['ok'] for ln in lines
+                        if ln.startswith('{"case"')]
+            check(cases_ok == [True, True], f'17d: tools/{name}: the '
+                  'control reads concordance, the injection tension')
+        elif name.startswith('validate_dispersion'):
+            verdict = [json.loads(ln) for ln in lines
+                       if ln.startswith('{"check"')]
+            check(len(verdict) == 1 and verdict[0]['ok'],
+                  f'17c: tools/{name}: exact and fast posteriors agree '
+                  f'({verdict[-1]["shifts"] if verdict else "no verdict"})')
+        else:
+            check(any('mocks, likelihood form = gaussian' in ln
+                      for ln in lines),
+                  f'17e: tools/{name}: its coverage report printed')
+    counts = runs['coverage_test_torch.py --mocks 60'][2]
+    what = ('coverage_test --mocks 60: find_map per mock, 4 starts; '
+            'launches: the tool\'s, in its own process; timed at the '
+            'largest call of its first mock\'s fit')
+    rows += [
+        kernel_row(f'ppoly_eval ({what})', 'ppoly_eval.cu',
+                   'victor_tpu/ops/splines.py:537', counts['ppoly_eval'],
+                   cases['forward'], f64),
+        kernel_row(f'ppoly_eval backward ({what})', 'ppoly_eval.cu',
+                   'victor_tpu/ops/splines.py:205', counts['backward'],
+                   cases['backward'], f64),
+        kernel_row(f'ppoly_eval second order, fused kernel ({what})',
+                   'ppoly_eval.cu', 'victor_tpu/ops/splines.py:205',
+                   counts['second_order'], cases['second_order'], f64)]
+    return rows
+
+
 def kernel_row(name, source, replaces, launches, result, dtype,
                calls=None):
     """One entry of the kernels summary line from a comparison's `timed`
@@ -4144,6 +4545,10 @@ def main() -> int:
                         help='build the kernels and time the CLI\'s run '
                              '--sampler smc and hmc on one card and on '
                              'every card (for several cards)')
+    parser.add_argument('--validate', action='store_true',
+                        help='build the kernels and run phase 17 in full '
+                             '(the validation tools at their full sizes) '
+                             'alone, printing its kernel rows')
     args = parser.parse_args()
     t_start = time.perf_counter()
 
@@ -4197,6 +4602,19 @@ def main() -> int:
         row = scale_out(build_tables(cfg['model'], cfg['data'],
                                      device='cuda'), card, probe_summary)
         print(json.dumps({'kernels': [row]}), flush=True)
+        return 0
+    if args.validate:
+        build_kernels()
+        cfg = load_config()
+        rows = validate(build_tables(cfg['model'], cfg['data'],
+                                     device='cuda'), card)
+        print(f'chip_smoke --validate: {time.perf_counter() - t_start:.1f} '
+              f's in all ({card})', flush=True)
+        print(f'card: {card}', flush=True)
+        print(json.dumps({'kernels': rows}), flush=True)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}), flush=True)
         return 0
 
     # ---- 2. build the kernels ----
@@ -4404,6 +4822,14 @@ def main() -> int:
           flush=True)
     scale_row = scale_out(bundle, card, probe_summary)
 
+    # ---- 17. the validation tools: the quadrature's core ----
+    print(f'validation tools: the grid quadrature at ngrid {QUAD_SMOKE_NGRID}'
+          ' (17a)', flush=True)
+    t17 = time.perf_counter()
+    quad_row = quadrature_row(
+        bundle, f'17a: ngrid {QUAD_SMOKE_NGRID}', quadrature_smoke(bundle))
+    print(f'  phase 17a: {time.perf_counter() - t17:.2f} s', flush=True)
+
     f64 = torch.float64
     print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all '
           f'({card})', flush=True)
@@ -4446,7 +4872,7 @@ def main() -> int:
                    "'fused', 1024 particles, chunk of 64)",
                    'dispersion_final.cu',
                    'victor_tpu/ops/dispersion_pallas.py:32', cmp_launches,
-                   cmp_result, f64)] + class_rows + [scale_row]}),
+                   cmp_result, f64)] + class_rows + [scale_row, quad_row]}),
           flush=True)
     evidence_dir.cleanup()
     print(json.dumps({'ok': True, 'device': {

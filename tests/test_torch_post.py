@@ -7,8 +7,9 @@ change of the likelihood form), and on the analytic Gaussian cases of
 tests/test_post.py. `parameter_shift` is copied host numpy; `run_tension`
 is held to the closed-form two-Gaussian evidence ratio of
 tests/test_tension.py. Also recomputes the per-point deltas that
-chip_smoke.py holds the card's `reweight` to (POST_GOLDENS), at full width.
-Everything is float64 on the CPU with one thread.
+chip_smoke.py holds the card's `reweight` to (POST_GOLDENS), at full width,
+and the grid quadrature's lnL, moments and logZ of its phase 17a
+(QUAD_SMOKE_*). Everything is float64 on the CPU with one thread.
 """
 
 import ast
@@ -137,6 +138,43 @@ def test_chip_smoke_post_goldens_match_victor_tpu():
     assert np.isfinite(res.lnl_old).all() and res.efficiency > 0.5
     np.testing.assert_allclose(res.lnl_new - res.lnl_old,
                                lit['POST_GOLDENS'], rtol=0, atol=1e-12)
+
+
+def test_chip_smoke_quad_smoke_goldens_match_victor_tpu():
+    """chip_smoke.py's phase 17a holds the quadrature tool's core on the
+    card (tools/validate_posterior_torch.py at QUAD_SMOKE_NGRID points per
+    axis, exact modes, chunk 128) to victor_tpu's lnL at every grid point
+    and to the moments and logZ that the JAX tool's own arithmetic makes of
+    them (QUAD_SMOKE_*); this recomputes them at full width in f64 and
+    compares with the literals (1e-9 relative)."""
+    import copy
+
+    import jax.numpy as jnp
+    from victor_tpu.io import build_tables
+    from victor_tpu.likelihood.batched import make_batched_loglike
+    from test_torch_tools import NAMES, original_quadrature, tpost as vp
+    tree = ast.parse(open(os.path.join(REPO, 'chip_smoke.py')).read())
+    lit = {t.id: ast.literal_eval(node.value) for node in tree.body
+           if isinstance(node, ast.Assign) for t in node.targets
+           if isinstance(t, ast.Name) and t.id.startswith('QUAD_SMOKE_')}
+    cfg = boss_config()
+    with open(os.path.join(REPO, 'configs',
+                           'boss_sampling_config.yaml')) as f:
+        import yaml
+        sampling = yaml.safe_load(f)
+    assert {k: sampling[k] for k in ('model', 'data')} == \
+        {k: {kk: vv for kk, vv in cfg[k].items() if kk != 'dir'}
+         for k in ('model', 'data')}
+    jb = build_tables(copy.deepcopy(cfg['model']), copy.deepcopy(cfg['data']))
+    axes = vp.quadrature_axes(lit['QUAD_SMOKE_NGRID'])
+    lnl = np.asarray(make_batched_loglike(
+        jb, NAMES, chunk=vp.CHUNK, gradient_free=False)(
+            jnp.asarray(vp.quadrature_grid(axes)))[0])
+    mean, std, logz, _ = original_quadrature(lnl, axes, sampling)
+    np.testing.assert_allclose(lnl, lit['QUAD_SMOKE_LNL'], rtol=1e-9)
+    np.testing.assert_allclose(mean, lit['QUAD_SMOKE_MEAN'], rtol=1e-9)
+    np.testing.assert_allclose(std, lit['QUAD_SMOKE_STD'], rtol=1e-9)
+    assert logz == pytest.approx(lit['QUAD_SMOKE_LOGZ'], rel=1e-9)
 
 
 # ---------------------------------------------------------------------------

@@ -265,3 +265,30 @@ print(' '.join(names))
                            'ppoly_eval.cu')) as f:
         src = f.read()
     assert 'ppoly_eval_backward_f64' in src and 'ppoly_bwd_reduce' in src
+
+
+def test_tools_import_without_jax():
+    """The port's validation tools (tools/*_torch.py) import in a process
+    where importing jax or the JAX package raises, and import neither."""
+    code = '''
+import glob, importlib, os, sys
+class NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in ('jax', 'victor_tpu'):
+            raise ImportError(name + ' is blocked')
+sys.meta_path.insert(0, NoJax())
+sys.path.insert(0, 'tools')
+names = sorted(os.path.basename(p)[:-3]
+               for p in glob.glob(os.path.join('tools', '*_torch.py')))
+for name in names:
+    importlib.import_module(name)
+assert not any(m.split('.')[0] in ('jax', 'victor_tpu') for m in sys.modules)
+print(' '.join(names))
+'''
+    env = {**os.environ, 'PYTHONPATH': REPO}
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == [
+        'coverage_test_torch', 'tension_injection_probe_torch',
+        'validate_dispersion_fast_torch', 'validate_posterior_torch']
