@@ -248,6 +248,31 @@ result line is printed):
       --mocks 20`; every command must exit 0 with its verdict lines, and
       the coverage tool's forward, backward and second-order launches
       (counted in its process) go into the kernels line.
+18. the examples (examples/*_torch.py), f64, at full width, through their
+   mains with --device cuda (the data's .npz copies where h5py is absent):
+   a. the model-options tour (its 20 options; no bracketed error line), the
+      usage walkthrough (the five cell-22 checkpoints, the multipoles,
+      xi(5, 5) of theory_xi_2D, the batched rate over 1024 points), the
+      inference walkthrough (find_map with 16 starts, the Laplace
+      correlation and evidence, the 13-point profile of fsigma8, the
+      Fisher sigmas at the MAP) and the multi-quantile walkthrough (the
+      joint lnL and chi2, a sigma_v__q1 override, 3 batched points, the
+      joint and single Fisher sigmas) against victor_tpu's values
+      (EXAMPLE_GOLDENS: class values and joint lnL / chi2 within 1e-9
+      relative, the MAP through FIT_GOLDENS as in 13f, Fisher sigmas,
+      correlation and evidence 1e-6, the profile interval's ends 1e-3);
+      each example's forward, backward and second-order launches counted
+      from 0 (each > 0 where its path runs that kernel); the spline
+      kernels at the largest call of find_map, the profile and the joint
+      Fisher held against their plain versions and timed (the phase's rows
+      of the kernels line);
+   `--examples` runs phases 2 and 18 alone, in full: a with usage's
+   --sample and inference's --smc at their full sizes,
+   b. the 256-walker ensemble over a mesh of every visible card, stopped
+      by its own rule (max R-1 < 0.02 by 1000 steps), and SMC with 2048
+      particles x 8 moves: moments within EXAMPLE_MEAN_TOL sigma and
+      EXAMPLE_STD_TOL of QUAD_MEAN / QUAD_STD, SMC's logZ within 3 se of
+      QUAD_LOGZ; their kernel calls timed too.
 
 Before them the script prints its own wall time. The last two lines are a
 JSON summary of the kernels (device-only `ms`, `host_us`; the sampler
@@ -928,6 +953,91 @@ def report():
 atexit.register(report)
 runpy.run_path(sys.argv[0], run_name='__main__')
 '''
+
+# Phase 18: the examples (examples/*_torch.py) on the card against
+# victor_tpu's values on the CPU in f64 (EXAMPLE_GOLDENS, recomputed with
+# victor_tpu by tests/test_torch_examples.py): the 20 (lnL, chi2) of the
+# model-options tour in its order; the usage walkthrough's five checkpoints
+# (lnL, chi2), its monopole and quadrupole at the data's s and xi(5, 5) of
+# its 2D ccf; the multi-quantile walkthrough's joint lnL and chi2, chi2
+# with sigma_v__q1 = 300, the batched joint lnL of its 3 points and the
+# Fisher sigmas (fsigma8, epsilon) of the joint and the single dataset;
+# the inference walkthrough's Fisher sigmas at its MAP (NAMES order, at
+# FIT_GOLDENS' optimum, where victor_tpu's 16 starts from the example's
+# refs land), the MAP's Laplace corr(fsigma8, sigma_v) and evidence, and
+# the 13-point profile's delta-chi2 = 1 interval of fsigma8
+EXAMPLE_GOLDENS = {
+    'model_options': [
+        [284.76438934894736, 65.01177758054122],
+        [284.7559061342999, 65.02983021427845],
+        [266.8145635915305, 103.90334973043414],
+        [69.48381083058015, 637.5782299908183],
+        [214.80449039428282, 224.80671363329245],
+        [109.93661626728101, 510.38458202193965],
+        [-569.9303663708824, 4880.289795000571],
+        [284.76438934894736, 65.01177758054122],
+        [283.97519105156397, 66.69253625000182],
+        [285.05826862045296, 64.38657931921178],
+        [284.76438934894736, 65.01177758054122],
+        [284.76438934894736, 65.01177758054122],
+        [284.7643893983707, 65.0117774753672],
+        [283.78198073188554, 65.01177758054122],
+        [285.7668247921523, 65.01177758054122],
+        [284.76438934894736, 65.01177758054122],
+        [286.38097944342746, 65.01177758054122],
+        [285.29743649728886, 64.80198016376836],
+        [284.5078911852504, 65.55775174414076],
+        [283.55036773653984, 67.59838309245853]],
+    'usage_checkpoints': [
+        [284.76438934894736, 65.01177758054122],
+        [284.7559061342999, 65.02983021427845],
+        [266.8145635915305, 103.90334973043414],
+        [285.05826862045296, 64.38657931921178],
+        [285.29743649728886, 64.80198016376836]],
+    'usage_monopole': [
+        -0.9998438125645572, -0.9991469597319664, -0.9955448338360536,
+        -0.9557854284826269, -0.8073858211524342, -0.6057318139531319,
+        -0.46270920345182404, -0.34201920385276335, -0.2208109338368932,
+        -0.11553171266886905, -0.03761978365485325, 0.012656421199107227,
+        0.04048484462540933, 0.052881359488789734, 0.05582845030086939,
+        0.053080338200195115, 0.04745346488858005, 0.04083397509084959,
+        0.03398075731380827, 0.027384939355168215, 0.02135112108346951,
+        0.01619065911077326, 0.011510230580677091, 0.0076195710521129245,
+        0.004886042777392949, 0.0026907614801713895, 0.001206758918123303,
+        0.0007164984204913851, 0.0007347775554772141, 0.001067566118303975],
+    'usage_quadrupole': [
+        -3.462285685656638e-05, 9.103281646717296e-05, 0.0030446584678983646,
+        0.0032497061944537255, -0.03270195554641607, -0.056790806494970536,
+        -0.020595514723313765, -0.0049729321594375545, -0.0019983265297158544,
+        0.007470014608224735, 0.020138425178604633, 0.029804552552037795,
+        0.034230101536475974, 0.03421755053159082, 0.031338572040692396,
+        0.0270361042613977, 0.02217338536463478, 0.01760775510968272,
+        0.01374186990924389, 0.010116957209465935, 0.00739504631772843,
+        0.005612775544326829, 0.004324576747127349, 0.0033648105762659,
+        0.002619672582087781, 0.0017495819772183987, 0.000884906065633605,
+        0.00032075180326996425, -0.00012186470906518055,
+        -0.0003285781874891899],
+    'usage_xi_5_5': -0.9986256184006633,
+    'joint_lnl': -60.903085988259775,
+    'joint_chi2': 129.405609851421,
+    'joint_chi2_q1': 132.77372216399576,
+    'joint_lnl_batch': [
+        -63.54246764425833, -60.91443016830798, -72.14524977735901],
+    'joint_sigma_joint': [0.029140023324508147, 0.006993782267148044],
+    'joint_sigma_single': [0.04032131192357172, 0.009713351057515543],
+    'map_fisher_std': [
+        0.054624642313584465, 0.006756406586176204, 46.42623119414295,
+        0.010109890732660144],
+    'map_corr': 0.6527635764436368,
+    'map_lnz_laplace': 278.72562094299957,
+    'profile_interval': [0.5285283338603157, 0.6383913603010951],
+}
+EXAMPLE_TOL = 1e-9            # class values, joint lnL / chi2: relative
+EXAMPLE_SIGMA_TOL = 1e-6      # Fisher sigmas, Laplace corr and evidence
+EXAMPLE_INTERVAL_TOL = 1e-3   # each end of the profile interval (beta grid)
+# 18b (--examples): the ensemble's and SMC's moments against the
+# quadrature's (QUAD_MEAN, QUAD_STD), the sampler gates of phase 12e
+EXAMPLE_MEAN_TOL, EXAMPLE_STD_TOL = 0.3, 0.25
 
 
 def check(ok, what):
@@ -4277,78 +4387,116 @@ def quadrature_row(bundle, which, launches):
                       launches, result, torch.float64)
 
 
+class KernelCalls:
+    """While active: the arguments of the first call at each shape of the
+    spline lookup's forward, backward and second-order kernels, under the
+    key `stage` that the caller sets (`first`: stage -> kind -> shape ->
+    arguments)."""
+
+    KINDS = ('forward', 'backward', 'second_order')
+
+    def __init__(self):
+        self.stage = None
+        self.first = {}
+
+    def __enter__(self):
+        import inspect
+
+        import torch
+        from victor_tpu_torch.kernels import ppoly
+        from victor_tpu_torch.ops import splines
+        self.real = {'forward': ppoly.ppoly_eval_cuda,
+                     'backward': ppoly.ppoly_eval_backward_cuda,
+                     'second_order': ppoly.ppoly_eval_second_order}
+
+        def recorder(kind):
+            fn = self.real[kind]
+            sig = inspect.signature(fn)
+
+            def record(*args, **kw):
+                bound = sig.bind(*args, **kw)
+                bound.apply_defaults()
+                call = tuple(a.detach() if torch.is_tensor(a) else a
+                             for a in bound.args)
+                key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                            for a in call)
+                per_kind = self.first.setdefault(
+                    self.stage, {k: {} for k in self.KINDS})
+                per_kind[kind].setdefault(key, call)
+                return fn(*args, **kw)
+            return record
+
+        splines.ppoly_eval_cuda = ppoly.ppoly_eval_cuda = recorder('forward')
+        ppoly.ppoly_eval_backward_cuda = recorder('backward')
+        ppoly.ppoly_eval_second_order = recorder('second_order')
+        return self
+
+    def __exit__(self, *exc):
+        from victor_tpu_torch.kernels import ppoly
+        from victor_tpu_torch.ops import splines
+        splines.ppoly_eval_cuda = ppoly.ppoly_eval_cuda = \
+            self.real['forward']
+        ppoly.ppoly_eval_backward_cuda = self.real['backward']
+        ppoly.ppoly_eval_second_order = self.real['second_order']
+
+
+def largest_call_cases(first, what):
+    """The spline kernels at the largest of their recorded calls (`first`:
+    kind -> shape -> arguments), each held against its plain version and
+    timed. Returns {kind: timed result}."""
+    from victor_tpu_torch.kernels import ppoly
+    cases = {}
+
+    def largest(kind):
+        return max(first[kind].values(),
+                   key=lambda c: (c[2].numel(), c[1].numel()))
+
+    if first['forward']:
+        x, c, q, clamp = largest('forward')
+        label = (f'ppoly_eval in {what}: coeffs={tuple(c.shape)} '
+                 f'q={tuple(q.shape)} clamp={clamp}')
+        err = compare_outputs(label, ppoly.ppoly_eval_cuda(x, c, q, clamp),
+                              ppoly.ppoly_eval_plain(x, c, q, clamp),
+                              q.dtype)
+        K = c.shape[1] if c.ndim == 4 else 1
+        cases['forward'] = timed(
+            label, err, lambda: ppoly.ppoly_eval_cuda(x, c, q, clamp),
+            lambda: ppoly.ppoly_eval_plain(x, c, q, clamp),
+            nbytes(x, c, q, q.new_empty(q.shape)),
+            q.numel() * ppoly_ops(x.shape[0], K))
+    if first['backward']:
+        x, c, q, g, clamp, want_dq, want_dc = largest('backward')
+        cases['backward'] = compare_backward(
+            f'ppoly_eval backward in {what}: coeffs={tuple(c.shape)} '
+            f'q={tuple(q.shape)} dq={want_dq} dcoeffs={want_dc}', x, c, q,
+            g, clamp, want_dq, want_dc, time_it=True)
+    if first['second_order']:
+        x, c, q, g, u, V, clamp, *wants = largest('second_order')
+        cases['second_order'] = compare_second_order(
+            f'second order in {what}: coeffs={tuple(c.shape)} '
+            f'q={tuple(q.shape)} wants={tuple(wants)}', x, c, q, g, u, V,
+            clamp, tuple(wants), time_it=True)
+    return cases
+
+
 def coverage_kernel_cases():
     """The spline lookup's forward, backward and second-order kernels at
     their calls in the coverage tool's fit of its first mock (find_map of
     `coverage_test_torch.py --mocks 60`: 4 starts through Adam, then
     Newton's Hessians), each held against its plain version and timed at
     its largest call. Returns {kernel: timed result}."""
-    import inspect
-
     import torch
-    from victor_tpu_torch.kernels import ppoly
-    from victor_tpu_torch.ops import splines
     cov = tool('coverage_test_torch')
     bundle, _, _ = cov.load_model('template', 'cuda')
-    real = {'forward': ppoly.ppoly_eval_cuda,
-            'backward': ppoly.ppoly_eval_backward_cuda,
-            'second_order': ppoly.ppoly_eval_second_order}
-    first = {kind: {} for kind in real}
-
-    def recorder(kind):
-        sig = inspect.signature(real[kind])
-
-        def record(*args, **kw):
-            bound = sig.bind(*args, **kw)
-            bound.apply_defaults()
-            call = tuple(a.detach() if torch.is_tensor(a) else a
-                         for a in bound.args)
-            key = tuple(tuple(a.shape) if torch.is_tensor(a) else a
-                        for a in call)
-            first[kind].setdefault(key, call)
-            return real[kind](*args, **kw)
-        return record
-
-    splines.ppoly_eval_cuda = ppoly.ppoly_eval_cuda = recorder('forward')
-    ppoly.ppoly_eval_backward_cuda = recorder('backward')
-    ppoly.ppoly_eval_second_order = recorder('second_order')
-    try:
+    with KernelCalls() as calls:
         cov.run_coverage(bundle, n_mocks=1, device='cuda')
-    finally:
-        splines.ppoly_eval_cuda = ppoly.ppoly_eval_cuda = real['forward']
-        ppoly.ppoly_eval_backward_cuda = real['backward']
-        ppoly.ppoly_eval_second_order = real['second_order']
     torch.cuda.synchronize()
-    check(all(first.values()), 'the coverage fit of one mock called the '
-          'forward, backward and second-order kernels: '
-          + ', '.join(f'{k} at {len(v)} shape(s)' for k, v in first.items()))
-
-    def largest(kind):
-        return max(first[kind].values(),
-                   key=lambda c: (c[2].numel(), c[1].numel()))
-
-    x, c, q, clamp = largest('forward')
-    label = (f'ppoly_eval in the coverage fit: coeffs={tuple(c.shape)} '
-             f'q={tuple(q.shape)} clamp={clamp}')
-    err = compare_outputs(label, ppoly.ppoly_eval_cuda(x, c, q, clamp),
-                          ppoly.ppoly_eval_plain(x, c, q, clamp), q.dtype)
-    K = c.shape[1] if c.ndim == 4 else 1
-    cases = {'forward': timed(
-        label, err, lambda: ppoly.ppoly_eval_cuda(x, c, q, clamp),
-        lambda: ppoly.ppoly_eval_plain(x, c, q, clamp),
-        nbytes(x, c, q, q.new_empty(q.shape)),
-        q.numel() * ppoly_ops(x.shape[0], K))}
-    x, c, q, g, clamp, want_dq, want_dc = largest('backward')
-    cases['backward'] = compare_backward(
-        f'ppoly_eval backward in the coverage fit: coeffs={tuple(c.shape)} '
-        f'q={tuple(q.shape)} dq={want_dq} dcoeffs={want_dc}', x, c, q, g,
-        clamp, want_dq, want_dc, time_it=True)
-    x, c, q, g, u, V, clamp, *wants = largest('second_order')
-    cases['second_order'] = compare_second_order(
-        f'second order in the coverage fit: coeffs={tuple(c.shape)} '
-        f'q={tuple(q.shape)} wants={tuple(wants)}', x, c, q, g, u, V, clamp,
-        tuple(wants), time_it=True)
-    return cases
+    first = calls.first.get(None, {})
+    check(len(first) == 3 and all(first.values()),
+          'the coverage fit of one mock called the forward, backward and '
+          'second-order kernels: ' + ', '.join(
+              f'{k} at {len(v)} shape(s)' for k, v in first.items()))
+    return largest_call_cases(first, 'the coverage fit')
 
 
 def run_lanes(tmp):
@@ -4491,6 +4639,216 @@ def validate(bundle, card):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ('model_options_demo_torch', 'usage_demo_torch',
+            'inference_demo_torch', 'multiquantile_demo_torch')
+
+
+# The calls that phase 18 times the spline kernels at, told apart by their
+# rows of queries: (example, what, {kernel: rows}). find_map's Adam steps
+# evaluate its 16 starts together and its Newton Hessians replicate the 4
+# parameters; the profile's Hessians 13 points x 3 free parameters; the
+# joint Fisher's Jacobian 2 quantiles x 60 outputs; with --examples the
+# ensemble's first evaluation of its 256 walkers and SMC's chunks of 64.
+EXAMPLE_KERNEL_CALLS = (
+    ('inference_demo_torch', "find_map's 16 starts (inference)",
+     {'forward': 16, 'backward': 16, 'second_order': 4}),
+    ('inference_demo_torch', 'the 13-point profile (inference)',
+     {'forward': 39, 'backward': 39, 'second_order': 39}),
+    ('multiquantile_demo_torch', 'the joint Fisher (multiquantile)',
+     {'forward': 120, 'backward': 120}))
+EXAMPLE_SAMPLER_CALLS = (
+    ('usage_demo_torch', 'the 256-walker ensemble (usage --sample)',
+     {'forward': 256}),
+    ('inference_demo_torch', 'SMC, 2048 particles (inference --smc)',
+     {'forward': 64}))
+
+
+def example(name):
+    """A module of examples/: the port's walkthroughs."""
+    import importlib
+    path = os.path.join(REPO, 'examples')
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    return importlib.import_module(name)
+
+
+def run_example(name, argv):
+    """An example's main with --device cuda: (its return value, its stdout
+    lines, seconds); the lines are printed as it ends, or fails."""
+    import contextlib
+    import io
+
+    import torch
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = example(name).main(argv + ['--device', 'cuda'])
+        torch.cuda.synchronize()
+    finally:
+        lines = buf.getvalue().splitlines()
+        for ln in lines:
+            print(f'    | {ln}', flush=True)
+    return out, lines, time.perf_counter() - t0
+
+
+def rel_within(what, got, want, rtol, scale=None):
+    """`got` within rtol of `want` elementwise (relative), or of `scale`."""
+    import numpy as np
+    got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+    ref = np.abs(want) if scale is None else scale
+    err = float(np.max(np.abs(got - want) / ref)) \
+        if got.shape == want.shape else float('inf')
+    check(err <= rtol, f'{what}: max relative |card - victor_tpu\'s| '
+                       f'{err:.3e} (<= {rtol:g})')
+
+
+def examples_phase(card, full=False):
+    """Phase 18a: the default paths of the four examples on the card
+    through their mains, their numbers against EXAMPLE_GOLDENS, the
+    launch counts of each (set to 0 just before it), and the spline
+    kernels at the calls of find_map's 16 starts, the 13-point profile and
+    the joint Fisher (EXAMPLE_KERNEL_CALLS, recorded by KernelCalls under
+    each example's name) held against their plain versions and timed. With
+    `full` (18b, --examples) usage's --sample and inference's --smc at
+    their full sizes too: their kernel calls timed, the rows printed, then
+    SMC's logZ within 3 se of QUAD_LOGZ and its moments against the
+    quadrature, the ensemble stopped by its own rule and its moments
+    against the quadrature. Returns the kernels line's rows."""
+    import re
+
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import ppoly
+
+    flags = {'usage_demo_torch': ['--sample'] if full else [],
+             'inference_demo_torch': ['--smc'] if full else []}
+    runs = {}
+    with KernelCalls() as calls:
+        for name in EXAMPLES:
+            argv = flags.get(name, [])
+            print(f'examples (18{"b" if full else "a"}): examples/'
+                  f'{name}.py {" ".join(argv + ["--device", "cuda"])}',
+                  flush=True)
+            torch.cuda.synchronize()
+            ppoly.LAUNCHES = ppoly.LAUNCHES_BWD = ppoly.LAUNCHES_2ND = 0
+            calls.stage = name
+            out, lines, seconds = run_example(name, argv)
+            launches = (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD,
+                        ppoly.LAUNCHES_2ND)
+            runs[name] = (out, lines, seconds, launches)
+            print(f'  {name}: {seconds:.2f} s ({card}); launches '
+                  f'forward {launches[0]}, backward {launches[1]}, '
+                  f'second order {launches[2]}', flush=True)
+
+    g = EXAMPLE_GOLDENS
+    rows, lines, _, launches = runs['model_options_demo_torch']
+    bad = [ln for ln in lines if re.search(r'\s\[\w+: ', ln)]
+    check(not bad and len(rows) == 20 and
+          all(lnl is not None for _, lnl, _ in rows),
+          f'18a model options: 20 options, no error line ({bad})')
+    rel_within('18a model options: (lnL, chi2) of each option',
+               [[lnl, chi2] for _, lnl, chi2 in rows], g['model_options'],
+               EXAMPLE_TOL)
+
+    out, lines, _, _ = runs['usage_demo_torch']
+    rel_within('18a usage: the five checkpoints (lnL, chi2)',
+               list(out['checkpoints'].values()), g['usage_checkpoints'],
+               EXAMPLE_TOL)
+    for ell, key in (('0', 'usage_monopole'), ('2', 'usage_quadrupole')):
+        rel_within(f'18a usage: theory multipole {ell} at the data\'s s '
+                   '(of its largest value)', out['multipoles'][ell], g[key],
+                   EXAMPLE_TOL, scale=float(np.abs(g[key]).max()))
+    rel_within('18a usage: xi(5, 5) of theory_xi_2D', out['xi_5_5'],
+               g['usage_xi_5_5'], EXAMPLE_TOL)
+    check(out['n_points'] == 1024 and out['evals_per_s'] > 0,
+          f'18a usage: {out["evals_per_s"]:,.1f} evals/s over 1024 points '
+          f'(default modes, chunks of 128; {card})')
+
+    out, lines, _, _ = runs['inference_demo_torch']
+    check_map(out['map'], '18a inference: find_map, 16 starts from the '
+                          "example's refs")
+    rel_within('18a inference: corr(fsigma8, sigma_v) of the Laplace '
+               'covariance', out['corr'], g['map_corr'], EXAMPLE_SIGMA_TOL)
+    rel_within('18a inference: the Laplace evidence',
+               out['lnz_laplace'], g['map_lnz_laplace'], EXAMPLE_SIGMA_TOL)
+    rel_within('18a inference: Fisher sigmas at the MAP',
+               [out['fisher'].std[n] for n in NAMES], g['map_fisher_std'],
+               EXAMPLE_SIGMA_TOL)
+    rel_within('18a inference: the 13-point profile\'s delta-chi2 = 1 '
+               'interval of fsigma8', out['interval'],
+               g['profile_interval'], EXAMPLE_INTERVAL_TOL)
+
+    out, lines, _, _ = runs['multiquantile_demo_torch']
+    for key in ('lnl', 'chi2', 'chi2_q1', 'lnl_batch'):
+        rel_within(f'18a multiquantile: {key}', out[key], g[f'joint_{key}'],
+                   EXAMPLE_TOL)
+    for key in ('sigma_joint', 'sigma_single'):
+        rel_within(f'18a multiquantile: Fisher {key}', out[key],
+                   g[f'joint_{key}'], EXAMPLE_SIGMA_TOL)
+
+    need = {'model_options_demo_torch': (True, False, False),
+            'usage_demo_torch': (True, False, False),
+            'inference_demo_torch': (True, True, True),
+            'multiquantile_demo_torch': (True, True, False)}
+    for name, wants in need.items():
+        got = runs[name][3]
+        check(all(n > 0 for n, w in zip(got, wants) if w),
+              f'18a {name}: forward, backward, second-order launches {got}'
+              f' (> 0 where {wants})')
+
+    stages = EXAMPLE_KERNEL_CALLS + (EXAMPLE_SAMPLER_CALLS if full else ())
+    replaces = {'forward': 'victor_tpu/ops/splines.py:537',
+                'backward': 'victor_tpu/ops/splines.py:205',
+                'second_order': 'victor_tpu/ops/splines.py:205'}
+    title = {'forward': 'ppoly_eval', 'backward': 'ppoly_eval backward',
+             'second_order': 'ppoly_eval second order, fused kernel'}
+    rows = []
+    for name, what, n_rows in stages:
+        first = {kind: {key: call for key, call in
+                        calls.first.get(name, {}).get(kind, {}).items()
+                        if kind in n_rows and call[2].shape[0] ==
+                        n_rows[kind]} for kind in KernelCalls.KINDS}
+        check(all(first[kind] for kind in n_rows),
+              f'18: {what} called the spline kernels at {n_rows} rows')
+        cases = largest_call_cases(first, what)
+        for i, kind in enumerate(KernelCalls.KINDS):
+            if kind in cases:
+                rows.append(kernel_row(
+                    f'{title[kind]} (18{"b" if full else "a"}: {what}; '
+                    'launches: the example\'s, timed at its largest call '
+                    f'of {n_rows[kind]} rows)', 'ppoly_eval.cu',
+                    replaces[kind], runs[name][3][i], cases[kind],
+                    torch.float64))
+    if full:
+        # the samplers' gates last, once every row is timed and printed:
+        # SMC, then the ensemble
+        print(json.dumps({'kernels': rows}), flush=True)
+        sample = runs['usage_demo_torch'][0]['sample']
+        smc = runs['inference_demo_torch'][0]['smc']
+        print(f'  18b ({card}): ensemble {sample.elapsed_s:.2f} s, '
+              f'{sample.n_steps} steps, acceptance {sample.acceptance:.3f}, '
+              f'R-1 {np.round(sample.rhat - 1, 4).tolist()}; SMC '
+              f'{smc.elapsed_s:.2f} s, {len(smc.betas) - 1} stages, '
+              f'{smc_evals(smc, 8) / smc.elapsed_s:,.1f} evals/s', flush=True)
+        evidence_gate(smc, '18b inference --smc (2048 x 8)')
+        posterior_gates({'summary': smc.summary()}, '18b inference --smc',
+                        EXAMPLE_MEAN_TOL, EXAMPLE_STD_TOL)
+        rm1 = float(np.max(sample.rhat - 1))
+        check(rm1 < 0.02 and sample.n_steps <= 1000,
+              f'18b usage --sample: the ensemble (256 walkers) stopped by '
+              f'its own rule, max R-1 {rm1:.4f} < 0.02, after '
+              f'{sample.n_steps} steps (<= 1000)')
+        posterior_gates({'summary': sample.summary()},
+                        '18b usage --sample ensemble', EXAMPLE_MEAN_TOL,
+                        EXAMPLE_STD_TOL)
+    return rows
+
+
 def kernel_row(name, source, replaces, launches, result, dtype,
                calls=None):
     """One entry of the kernels summary line from a comparison's `timed`
@@ -4548,6 +4906,11 @@ def main() -> int:
     parser.add_argument('--validate', action='store_true',
                         help='build the kernels and run phase 17 in full '
                              '(the validation tools at their full sizes) '
+                             'alone, printing its kernel rows')
+    parser.add_argument('--examples', action='store_true',
+                        help='build the kernels and run phase 18 in full '
+                             '(the examples, with the ensemble of usage '
+                             '--sample and the SMC run of inference --smc) '
                              'alone, printing its kernel rows')
     args = parser.parse_args()
     t_start = time.perf_counter()
@@ -4612,6 +4975,18 @@ def main() -> int:
               f's in all ({card})', flush=True)
         print(f'card: {card}', flush=True)
         print(json.dumps({'kernels': rows}), flush=True)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if args.examples:
+        # phase 18 prints its kernel rows itself, before the samplers' gates
+        build_kernels()
+        examples_phase(card, full=True)
+        print(f'chip_smoke --examples: {time.perf_counter() - t_start:.1f} '
+              f's in all ({card})', flush=True)
+        print(f'card: {card}', flush=True)
         print(json.dumps({'ok': True, 'device': {
             'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
             'count': torch.cuda.device_count()}}), flush=True)
@@ -4830,6 +5205,11 @@ def main() -> int:
         bundle, f'17a: ngrid {QUAD_SMOKE_NGRID}', quadrature_smoke(bundle))
     print(f'  phase 17a: {time.perf_counter() - t17:.2f} s', flush=True)
 
+    # ---- 18. the examples ----
+    t18 = time.perf_counter()
+    example_rows = examples_phase(card)
+    print(f'  phase 18a: {time.perf_counter() - t18:.2f} s', flush=True)
+
     f64 = torch.float64
     print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all '
           f'({card})', flush=True)
@@ -4872,7 +5252,8 @@ def main() -> int:
                    "'fused', 1024 particles, chunk of 64)",
                    'dispersion_final.cu',
                    'victor_tpu/ops/dispersion_pallas.py:32', cmp_launches,
-                   cmp_result, f64)] + class_rows + [scale_row, quad_row]}),
+                   cmp_result, f64)] + class_rows + [scale_row, quad_row]
+        + example_rows}),
           flush=True)
     evidence_dir.cleanup()
     print(json.dumps({'ok': True, 'device': {

@@ -268,8 +268,9 @@ print(' '.join(names))
 
 
 def test_tools_import_without_jax():
-    """The port's validation tools (tools/*_torch.py) import in a process
-    where importing jax or the JAX package raises, and import neither."""
+    """The port's tools and walkthroughs (tools/*_torch.py,
+    examples/*_torch.py) import in a process where importing jax or the JAX
+    package raises, and import neither."""
     code = '''
 import glob, importlib, os, sys
 class NoJax:
@@ -277,9 +278,9 @@ class NoJax:
         if name.split('.')[0] in ('jax', 'victor_tpu'):
             raise ImportError(name + ' is blocked')
 sys.meta_path.insert(0, NoJax())
-sys.path.insert(0, 'tools')
-names = sorted(os.path.basename(p)[:-3]
-               for p in glob.glob(os.path.join('tools', '*_torch.py')))
+sys.path[:0] = ['tools', 'examples']
+names = sorted(os.path.basename(p)[:-3] for d in ('tools', 'examples')
+               for p in glob.glob(os.path.join(d, '*_torch.py')))
 for name in names:
     importlib.import_module(name)
 assert not any(m.split('.')[0] in ('jax', 'victor_tpu') for m in sys.modules)
@@ -290,5 +291,8 @@ print(' '.join(names))
                          text=True, env=env, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == [
-        'coverage_test_torch', 'tension_injection_probe_torch',
+        'coverage_test_torch', 'inference_demo_torch',
+        'make_notebooks_torch', 'model_options_demo_torch',
+        'multiquantile_demo_torch', 'plot_chains_torch',
+        'tension_injection_probe_torch', 'usage_demo_torch',
         'validate_dispersion_fast_torch', 'validate_posterior_torch']
