@@ -273,6 +273,34 @@ result line is printed):
       particles x 8 moves: moments within EXAMPLE_MEAN_TOL sigma and
       EXAMPLE_STD_TOL of QUAD_MEAN / QUAD_STD, SMC's logZ within 3 se of
       QUAD_LOGZ; their kernel calls timed too.
+19. the excursion-set model's table modes of P(k) on
+   configs/esm_sampling_config.yaml at full BOSS width, f64, chunk 64:
+   a. (i) tools/make_camb_table_torch.py --device cuda in two subprocesses
+      started together writes the single table at the ESM defaults
+      (CAMB_TABLE_ARGV) and the (H0, ns) grid of
+      tools/validate_camb_grid_torch.py (CAMB_GRID_ARGV); every check below
+      reads those files. (ii) table mode: chi2 and lnL at ESM_REF against
+      victor_tpu's within 1e-8 and against EH mode (ESM_GOLDENS) within
+      CAMB_TABLE_EH_RTOL relative; (iii) grid mode with H0 and ns added, at
+      ESM_GRID_POINTS (off a node, on a node, below the hull): chi2 and lnL
+      within 1e-8, d lnL / d theta of the 11 parameters within 1e-8
+      relative of jax.grad (0 in H0 below the hull), the 11 x 11 -Hessian
+      off the nodes within 1e-7 of max|H|; (iv) ExcursionSetProfile(
+      pk_table=) on the card: fiducial sigma8, P(k), the enclosed profile
+      and density_evolution within 1e-9 of each group's largest value
+      (ESM_CAMB_GOLDENS, victor_tpu's, recomputed by
+      tests/test_torch_camb_grid.py); (v) the forward launches of the table
+      and grid runs (>= 4 per chunk), the backward launches of (iii)'s
+      gradient and the second-order launches of its Hessian (each > 0),
+      and the three kernels at the largest of their calls in (iii) held
+      against their plain versions and timed (the phase's rows of the
+      kernels line);
+   `--camb-grid` runs phases 2 and 19 alone, in full: a, then
+   b. tools/validate_camb_grid_torch.py --device cuda at its defaults
+      (4096 particles x 6 moves, seed 0: tempered SMC of the 11-parameter
+      posterior in EH and in grid mode) in a subprocess: it must exit 0
+      with its PASS line; its seconds, evaluations per second and kernel
+      launches are printed.
 
 Before them the script prints its own wall time. The last two lines are a
 JSON summary of the kernels (device-only `ms`, `host_us`; the sampler
@@ -1038,6 +1066,108 @@ EXAMPLE_INTERVAL_TOL = 1e-3   # each end of the profile interval (beta grid)
 # 18b (--examples): the ensemble's and SMC's moments against the
 # quadrature's (QUAD_MEAN, QUAD_STD), the sampler gates of phase 12e
 EXAMPLE_MEAN_TOL, EXAMPLE_STD_TOL = 0.3, 0.25
+
+# Phase 19: the ESM's table modes of P(k). The files that
+# tools/make_camb_table_torch.py writes on the card (--out and --device
+# appended): the single table at the ESM defaults and the (H0, ns) grid of
+# tools/validate_camb_grid_torch.py (H0_GRID, NS_GRID)
+CAMB_TABLE_ARGV = ['--generator', 'eh', '--z', '0.57', '--npts', '400']
+CAMB_GRID_ARGV = ['--generator', 'eh', '--z', '0.57', '--npts', '400',
+                  '--grid', 'H0=60,65,70,75', '--grid', 'ns=0.90,0.95,1.00']
+# grid mode's (H0, ns) beside ESM_REF: between nodes, on a node of both axes
+# (the clip's tie) and below the hull in H0
+ESM_GRID_POINTS = {'off-node': [66.4, 0.945], 'node': [65.0, 0.95],
+                   'outside': [58.0, 0.945]}
+# victor_tpu on the CPU in f64 at full width, from the JAX tool's files made
+# with the arguments above: [chi2, lnL] (exact modes) in table mode at
+# ESM_REF and in grid mode at ESM_GRID_POINTS; d lnL / d theta there and the
+# 11 x 11 -Hessian at the off-node point (AD-resolved modes; the parameters
+# of ESM_REF, then H0 and ns); ExcursionSetProfile(**ESP_ARGS,
+# pk_table=the table) after set_normalisation(0.81): the fiducial sigma8 (z =
+# 0, z), P(k, ESP_PROFILE's z) at API_K, the enclosed profile (Lagrangian
+# grid linspace(1, 120, 60)) and density_evolution at API_R. Recomputed and
+# compared with these literals by
+# tests/test_torch_camb_grid.py::test_chip_smoke_camb_grid_goldens
+ESM_CAMB_GOLDENS = {
+    'table ref': [85.0288135611884, 275.4473890792092],
+    'grid off-node': [82.86469243483889, 276.44657109834003],
+    'grid node': [82.09075335383248, 276.8043866583152],
+    'grid outside': [78.24866281747897, 278.58450268911866],
+    'grad off-node': [33.659706491608716, 71.48917494529435,
+                      -5.578701701332822, -5.072210313021013,
+                      3.3478843239075466, -54.67277727733904,
+                      -326.9602164574734, 0.010188052225014177,
+                      281.42032098726776, -0.3867209697881101,
+                      -39.10879420727012],
+    'grad node': [32.26711459937345, 68.94836611756443, -5.358417059124037,
+                  -4.9008658771118885, 3.3213865322505463, -54.24091200222341,
+                  -324.9363565158839, 0.011354657968640325, 276.4234732414133,
+                  -0.15915547530806862, -18.815463315360173],
+    'grad outside': [23.28542606689932, 52.47026622951359, -3.890109462690512,
+                     -3.7935048927130204, 3.0848066676046795,
+                     -50.38168452535807, -312.89701282817504,
+                     0.018009374610692186, 246.1271668437452, 0.0,
+                     -28.791254349873196],
+    'hessian off-node': [
+        [243.63423356721304, 335.7202484243705, -17.578598368331306,
+         -24.59508861906335, -12.992443373675567, 212.58918760609532,
+         -424.0577059358635, -0.2237111040242968, 468.3375925620586,
+         -1.4105353335933892, -139.3338531388524],
+        [335.7202484243715, 656.0110774722308, -33.66783315446902,
+         -40.752886008814265, -13.075622636799642, 214.0893189802737,
+         -650.3466574679, -0.3414604409339757, 894.7409438708703,
+         -2.573921291980805, -252.1098661214138],
+        [-17.578598368331356, -33.66783315446931, 4.887381048266572,
+         3.089581811674064, -2.1409713120048575, 34.991255972785396,
+         22.49168566910352, 0.01138403777089845, -88.2121947526128,
+         0.22572553765012288, 21.75783620440282],
+        [-24.595088619063418, -40.752886008814464, 3.089581811674069,
+         3.8678606886241784, 1.3711186471847032, -22.443739389008886,
+         49.04180990138423, 0.02559107812706924, -59.31212383934982,
+         0.17307538520898813, 17.002649008635522],
+        [-12.992443373675636, -13.075622636799617, -2.1409713120048997,
+         1.3711186471846926, 5.936375242890638, -90.22133106044093,
+         44.9980143569698, 0.02353266649489476, 29.38452820015624,
+         -0.02868358754223521, -2.2964708349869176],
+        [212.58918760609873, 214.08931898029317, 34.99125597278564,
+         -22.443739389009085, -90.22133106044036, 1347.9001932486801,
+         -735.8863999908801, -0.3848473041055228, -480.19615679920554,
+         0.4675513933162464, 37.40322648154986],
+        [-424.05770593586686, -650.3466574679169, 22.491685669104896,
+         49.04180990138434, 44.99801435696831, -735.8863999909266,
+         18412.84774859933, 0.08819886783366555, 558.5842773757241,
+         2.156698292902115, 233.65077424967754],
+        [-0.22371110402429478, -0.34146044093397365, 0.011384037770898248,
+         0.025591078127069067, 0.023532666494894314, -0.3848473041055276,
+         0.08819886783368247, 0.000674636144653249, 0.008518079359596697,
+         0.0011967095361581706, 0.12048858428306497],
+        [468.3375925620571, 894.7409438708739, -88.21219475261266,
+         -59.312123839349745, 29.384528200156424, -480.1961567992058,
+         558.5842773757233, 0.008518079359594768, 11011.3356231383,
+         -5.234540164558402, -519.550918676022],
+        [-1.4105353335933273, -2.5739212919806276, 0.2257255376501302,
+         0.17307538520897622, -0.028683587542233456, 0.4675513933161909,
+         2.1566982929020413, 0.0011967095361581053, -5.234540164558098,
+         -0.004025789030496929, 1.4057276827605165],
+        [-139.33385313885557, -252.10986612142312, 21.75783620440231,
+         17.00264900863632, -2.296470834987477, 37.40322648155375,
+         233.65077424968635, 0.1204885842830718, -519.5509186760735,
+         1.4057276827605865, 118.76272029132694]],
+    'esp fiducial': [0.8097274919128696, 0.6022706384750923],
+    'esp power': [2120.0045733168195, 5600.330354073735, 11937.834168310153,
+                  10664.507988910675, 3099.379509704702, 479.0516133633867,
+                  36.22613436948773, 7.061497561199747],
+    'esp enclosed': [-0.46857917411346817, -0.4506949126447359,
+                     -0.36052383042031855, -0.1879746743630975,
+                     -0.0667234089598006, -0.016354725196968872,
+                     -0.005155232088385548, -0.0029521673612446985],
+    'esp evolution': [-0.3144092680773263, -0.31010809472128553,
+                      -0.2830659475111431, -0.18185374058218343,
+                      -0.06843539187478981, -0.01657315653997434,
+                      -0.00515883177594674, -0.002957815832717244],
+}
+CAMB_TABLE_EH_RTOL = 1e-5     # table mode against EH mode, relative
+CAMB_GRID_TIMEOUT = 2400      # seconds for validate_camb_grid_torch.py
 
 
 def check(ok, what):
@@ -4499,15 +4629,17 @@ def coverage_kernel_cases():
     return largest_call_cases(first, 'the coverage fit')
 
 
-def run_lanes(tmp):
-    """Phases 17c-e: VALIDATE_LANES's commands with --device cuda, each a
-    subprocess through LAUNCH_COUNTING_RUNNER, the lanes beside each other;
-    each command's stdout printed when it ends. Returns {command: (exit
-    code, stdout lines, launch counters, seconds)}."""
+def run_lanes(tmp, lanes=VALIDATE_LANES, timeout=VALIDATE_TIMEOUT,
+              phase='17'):
+    """Phases 17c-e (and 19b): the commands of `lanes` (tools/ scripts and
+    their arguments) with --device cuda, each a subprocess through
+    LAUNCH_COUNTING_RUNNER, the lanes beside each other, all within
+    `timeout` seconds; each command's stdout printed when it ends. Returns
+    {command: (exit code, stdout lines, launch counters, seconds)}."""
     import threading
     results = {}
     lock = threading.Lock()
-    deadline = time.monotonic() + VALIDATE_TIMEOUT
+    deadline = time.monotonic() + timeout
 
     def lane(i, commands):
         for j, cmd in enumerate(commands):
@@ -4534,8 +4666,8 @@ def run_lanes(tmp):
             with lock:
                 results[name] = (rc, lines, counts[-1] if counts else None,
                                  seconds)
-                print(f'  17: tools/{name} --device cuda: exit {rc} after '
-                      f'{seconds:.1f} s (lane {i})', flush=True)
+                print(f'  {phase}: tools/{name} --device cuda: exit {rc} '
+                      f'after {seconds:.1f} s (lane {i})', flush=True)
                 for ln in lines:
                     print(f'    {ln}', flush=True)
                 if rc != 0:
@@ -4544,7 +4676,7 @@ def run_lanes(tmp):
                             print(f'    stderr: {ln}', flush=True)
 
     threads = [threading.Thread(target=lane, args=(i, cmds))
-               for i, cmds in enumerate(VALIDATE_LANES)]
+               for i, cmds in enumerate(lanes)]
     for t in threads:
         t.start()
     for t in threads:
@@ -4849,6 +4981,246 @@ def examples_phase(card, full=False):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the ESM's table modes of P(k)
+# ---------------------------------------------------------------------------
+
+def write_camb_tables(tmp):
+    """Phase 19a (i): make_camb_table_torch.py --device cuda in two
+    subprocesses started together, writing CAMB_TABLE_ARGV's table and
+    CAMB_GRID_ARGV's grid into `tmp`. Returns {'table': path, 'grid':
+    path}."""
+    paths, procs = {}, {}
+    for mode, argv in (('table', CAMB_TABLE_ARGV), ('grid', CAMB_GRID_ARGV)):
+        paths[mode] = os.path.join(tmp, f'pk_{mode}.npz')
+        procs[mode] = subprocess.Popen(
+            [sys.executable, os.path.join(REPO, 'tools',
+                                          'make_camb_table_torch.py')]
+            + argv + ['--out', paths[mode], '--device', 'cuda'],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=REPO)
+    for mode, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        print(f'    | {out.strip()}', flush=True)
+        check(proc.returncode == 0 and
+              out.startswith(f'wrote {paths[mode]}: '),
+              f'19a (i): make_camb_table_torch.py --device cuda exited '
+              f'{proc.returncode} and wrote the {mode}'
+              + (f' ({err.strip()[-300:]})' if proc.returncode else ''))
+    return paths
+
+
+def table_modes(card):
+    """Phase 19a: configs/esm_sampling_config.yaml at full BOSS width, f64,
+    chunk 64, with P(k) from the files that make_camb_table_torch.py writes
+    on the card (i): in table mode chi2 and lnL at ESM_REF against
+    victor_tpu's within 1e-8, and against EH mode (ESM_GOLDENS) within
+    CAMB_TABLE_EH_RTOL relative (ii); in grid mode, H0 and ns added, chi2
+    and lnL at ESM_GRID_POINTS within 1e-8, d lnL / d theta of the 11
+    parameters within 1e-8 relative and the 11 x 11 -Hessian at the
+    off-node point within 1e-7 of max|H| (iii);
+    ExcursionSetProfile(pk_table=) on the card within 1e-9 of each group's
+    largest value (iv); the spline kernels' launches in the table and grid
+    runs, the gradient and the Hessian, and the kernels at the largest of
+    their calls there held against their plain versions and timed (v).
+    Returns the kernels line's rows."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+    from victor_tpu_torch.io.tables import build_tables
+    from victor_tpu_torch.kernels import ppoly
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+    from victor_tpu_torch.models.esm import ExcursionSetProfile
+    from victor_tpu_torch.sampling.optimize import value_grad_hessian
+    from victor_tpu_torch.sampling.targets import resolve_target
+
+    g = ESM_CAMB_GOLDENS
+    f64 = torch.float64
+    t0 = time.perf_counter()
+    cfg = load_config('esm_sampling_config.yaml')
+    names9 = list(cfg['params'])
+    names = names9 + ['H0', 'ns']
+    ref9 = [ESM_REF[k] for k in names9]
+    with tempfile.TemporaryDirectory() as tmp:
+        print('ESM table modes (19a): make_camb_table_torch.py on the card',
+              flush=True)
+        paths = write_camb_tables(tmp)
+        print(f'  19a (i): {time.perf_counter() - t0:.2f} s', flush=True)
+        bundles = {}
+        for mode, key in (('table', 'pk_table_file'),
+                          ('grid', 'pk_grid_file')):
+            model = copy.deepcopy(cfg['model'])
+            model['matter_ccf']['excursion_set_options'] = {
+                'use_eisenstein_hu': False, key: paths[mode]}
+            bundles[mode] = build_tables(model, cfg['data'], device='cuda')
+        table = dict(np.load(paths['table']))
+    check(not bundles['table'].spec.esm_use_eh and
+          bundles['grid'].spec.esm_grid_names == ('H0', 'ns') and
+          bundles['grid'].tables.esm_pk_grid.shape == (12, 200) and
+          bundles['grid'].tables.esm_pk_grid.device.type == 'cuda',
+          '19a: table mode, and grid mode over (H0, ns) with 12 tables on '
+          'the card')
+
+    def values(what, got, want):
+        err = float(np.max(np.abs(np.asarray(got) - np.asarray(want))))
+        check(err < 1e-8, f'{what}: chi2 {got[0]:.10f} ({want[0]:.10f}), '
+                          f'lnL {got[1]:.10f} ({want[1]:.10f}): max |d| '
+                          f'{err:.3e} (< 1e-8)')
+
+    # (ii) table mode at the ESM ref point
+    ppoly.LAUNCHES = 0
+    lnl, chi = make_batched_loglike(bundles['table'], names9, opts_kw=EXACT,
+                                    chunk=CHUNK)([ref9])
+    torch.cuda.synchronize()
+    table_launches = ppoly.LAUNCHES
+    got = [float(chi[0]), float(lnl[0])]
+    values('19a (ii) table mode at the ref point', got, g['table ref'])
+    eh = ESM_GOLDENS['streaming']
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, eh))
+    check(rel <= CAMB_TABLE_EH_RTOL,
+          f'19a (ii) table mode against EH mode at the ref point: max '
+          f'relative |d| of chi2 and lnL {rel:.3e} (<= {CAMB_TABLE_EH_RTOL})')
+    check(table_launches >= 4, f'19a (ii) table mode: ppoly_eval kernel '
+                               f'launches {table_launches} (>= 4, one chunk)')
+
+    # (iii) grid mode at the three points, with the calls of the kernels
+    # recorded for (v)
+    points = [ref9 + v for v in ESM_GRID_POINTS.values()]
+    with KernelCalls() as calls:
+        ppoly.LAUNCHES = 0
+        lnl, chi = make_batched_loglike(bundles['grid'], names,
+                                        opts_kw=EXACT, chunk=CHUNK)(points)
+        torch.cuda.synchronize()
+        grid_launches = ppoly.LAUNCHES
+        for i, p in enumerate(ESM_GRID_POINTS):
+            values(f'19a (iii) grid mode, {p} (H0, ns) = '
+                   f'{tuple(ESM_GRID_POINTS[p])}',
+                   [float(chi[i]), float(lnl[i])], g[f'grid {p}'])
+        check(grid_launches >= 4, f'19a (iii) grid mode: ppoly_eval kernel '
+                                  f'launches {grid_launches} (>= 4, one '
+                                  'chunk)')
+        tables, loglike = resolve_target(bundles['grid'], None, None,
+                                         gradient_free=False)
+        th = torch.tensor(points, dtype=f64, device='cuda',
+                          requires_grad=True)
+        ppoly.LAUNCHES_BWD = 0
+        lnl = loglike(tables, {k: th[:, i] for i, k in enumerate(names)})[0]
+        (grad,) = torch.autograd.grad(lnl.sum(), th)
+        torch.cuda.synchronize()
+        bwd_launches = ppoly.LAUNCHES_BWD
+        for i, p in enumerate(ESM_GRID_POINTS):
+            want = np.array(g[f'grad {p}'])
+            got = grad[i].cpu().numpy()
+            # relative to each entry, or to 1e-6 of the largest where an
+            # entry is zero (H0 outside the hull)
+            rel = float((np.abs(got - want) / np.maximum(
+                np.abs(want), 1e-6 * np.abs(want).max())).max())
+            check(rel <= 1e-8, f'19a (iii) d lnL / d theta in grid mode, '
+                               f'{p}: max relative error {rel:.3e} against '
+                               'jax.grad (<= 1e-8)')
+        h0 = names.index('H0')
+        check(float(grad[2, h0]) == 0.0,
+              '19a (iii) outside the hull: d lnL / d H0 = '
+              f'{float(grad[2, h0])!r} (the clamp has no derivative)')
+        check(bwd_launches > 0, f'19a (iii) backward kernel launches of the '
+                                f'gradient: {bwd_launches}')
+
+        def neg(t):
+            return -loglike(tables, {k: t[:, i] for i, k in
+                                     enumerate(names)})[0]
+        ppoly.LAUNCHES_2ND = 0
+        th0 = torch.tensor([points[0]], dtype=f64, device='cuda')
+        H = value_grad_hessian(neg, th0)[2][0].cpu().numpy()
+        torch.cuda.synchronize()
+        so_launches = ppoly.LAUNCHES_2ND
+    want = np.array(g['hessian off-node'])
+    err = float(np.abs(H - want).max() / np.abs(want).max())
+    check(np.isfinite(H).all() and err <= 1e-7,
+          f'19a (iii) the 11 x 11 -Hessian in grid mode at the off-node '
+          f'point: max error {err:.3e} of max|H| against jax.hessian '
+          f'(<= 1e-7); second-order kernel launches {so_launches}')
+    check(so_launches > 0, f'19a (iii) second-order kernel launches of the '
+                           f'Hessian: {so_launches}')
+
+    # (iv) ExcursionSetProfile with the table, on the card
+    esp = ExcursionSetProfile(**ESP_ARGS, use_eisenstein_hu=False,
+                              pk_table=table)
+    check(esp.device.type == 'cuda' and not esp.use_eisenstein_hu,
+          f'19a (iv) ExcursionSetProfile(pk_table=) on {esp.device}, EH '
+          f'{esp.use_eisenstein_hu}')
+    esp.set_normalisation(0.81)
+    lagrange = np.linspace(1.0, 120.0, 60)
+    for key, got in (
+            ('esp fiducial', [esp.s80_fiducial, esp.s8z_fiducial]),
+            ('esp power', esp.power(np.array(API_K), ESP_PROFILE[0])),
+            ('esp enclosed', esp.model_enclosed_density_profile(
+                lagrange, *ESP_PROFILE)(np.array(API_R))),
+            ('esp evolution', esp.density_evolution(*ESP_PROFILE)(
+                np.array(API_R)))):
+        rel_within(f'19a (iv) ExcursionSetProfile(pk_table=): '
+                   f'{key.split()[1]} (of its largest value)', got, g[key],
+                   1e-9, scale=float(np.abs(g[key]).max()))
+    print(f'  19a (i-iv): {time.perf_counter() - t0:.2f} s; launches: '
+          f'forward {table_launches} (table) + {grid_launches} (grid), '
+          f'backward {bwd_launches} (3-point gradient), second order '
+          f'{so_launches} (11 x 11 Hessian)', flush=True)
+
+    # (v) the kernels at the grid path's largest calls
+    cases = largest_call_cases(calls.first.get(None, {}),
+                               'the ESM grid path')
+    check(set(cases) == set(KernelCalls.KINDS),
+          f'19a (v) the grid path called {sorted(cases)}')
+    what = {'forward': ('ppoly_eval', 'victor_tpu/ops/splines.py:537',
+                        table_launches + grid_launches,
+                        'the table and grid chi2 runs'),
+            'backward': ('ppoly_eval backward',
+                         'victor_tpu/ops/splines.py:205', bwd_launches,
+                         "the 3-point gradient's"),
+            'second_order': ('ppoly_eval second order, fused kernel',
+                             'victor_tpu/ops/splines.py:205', so_launches,
+                             "the 11 x 11 Hessian's")}
+    rows = []
+    for kind in KernelCalls.KINDS:
+        title, replaces, launches, whose = what[kind]
+        rows.append(kernel_row(
+            f'{title} (19a: the ESM grid mode of P(k), f64; launches: '
+            f'{whose}; timed at its largest call)', 'ppoly_eval.cu',
+            replaces, launches, cases[kind], f64))
+    print(f'  phase 19a: {time.perf_counter() - t0:.2f} s ({card})',
+          flush=True)
+    return rows
+
+
+def camb_grid_validate(card):
+    """Phase 19b (`--camb-grid`): tools/validate_camb_grid_torch.py
+    --device cuda at its defaults (4096 particles x 6 moves, seed 0) in a
+    subprocess through LAUNCH_COUNTING_RUNNER: it must exit 0 with its PASS
+    line; prints its seconds, its evaluations per second and its kernel
+    launches."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        (rc, lines, counts, seconds), = run_lanes(
+            tmp, [[['validate_camb_grid_torch.py']]], CAMB_GRID_TIMEOUT,
+            '19b').values()
+    evals = sum(int(ln.split()[2]) for ln in lines
+                if ln.startswith('  ') and 'likelihood evaluations' in ln)
+    print(f'  19b ({card}): {evals:,} likelihood evaluations in '
+          f'{seconds:.1f} s, {evals / seconds:,.1f} evals/s over the whole '
+          f'command; kernel launches {counts}', flush=True)
+    check(rc == 0 and any(ln.startswith('PASS: ') for ln in lines),
+          '19b: tools/validate_camb_grid_torch.py at its defaults: the grid '
+          'mode posterior matches EH mode (PASS, exit 0)')
+    check(counts is not None and counts['ppoly_eval'] > 0,
+          '19b: the SMC runs launched the ppoly_eval kernel')
+
+
 def kernel_row(name, source, replaces, launches, result, dtype,
                calls=None):
     """One entry of the kernels summary line from a comparison's `timed`
@@ -4906,6 +5278,11 @@ def main() -> int:
     parser.add_argument('--validate', action='store_true',
                         help='build the kernels and run phase 17 in full '
                              '(the validation tools at their full sizes) '
+                             'alone, printing its kernel rows')
+    parser.add_argument('--camb-grid', action='store_true',
+                        help='build the kernels and run phase 19 (the '
+                             "ESM's table modes of P(k), with "
+                             'validate_camb_grid_torch.py at its defaults) '
                              'alone, printing its kernel rows')
     parser.add_argument('--examples', action='store_true',
                         help='build the kernels and run phase 18 in full '
@@ -4972,6 +5349,21 @@ def main() -> int:
         rows = validate(build_tables(cfg['model'], cfg['data'],
                                      device='cuda'), card)
         print(f'chip_smoke --validate: {time.perf_counter() - t_start:.1f} '
+              f's in all ({card})', flush=True)
+        print(f'card: {card}', flush=True)
+        print(json.dumps({'kernels': rows}), flush=True)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if args.camb_grid:
+        build_kernels()
+        rows = table_modes(card)
+        print("ESM table modes (19b): validate_camb_grid_torch.py at its "
+              'defaults', flush=True)
+        camb_grid_validate(card)
+        print(f'chip_smoke --camb-grid: {time.perf_counter() - t_start:.1f} '
               f's in all ({card})', flush=True)
         print(f'card: {card}', flush=True)
         print(json.dumps({'kernels': rows}), flush=True)
@@ -5210,6 +5602,9 @@ def main() -> int:
     example_rows = examples_phase(card)
     print(f'  phase 18a: {time.perf_counter() - t18:.2f} s', flush=True)
 
+    # ---- 19. the ESM's table modes of P(k) ----
+    camb_rows = table_modes(card)
+
     f64 = torch.float64
     print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all '
           f'({card})', flush=True)
@@ -5253,7 +5648,7 @@ def main() -> int:
                    'dispersion_final.cu',
                    'victor_tpu/ops/dispersion_pallas.py:32', cmp_launches,
                    cmp_result, f64)] + class_rows + [scale_row, quad_row]
-        + example_rows}),
+        + example_rows + camb_rows}),
           flush=True)
     evidence_dir.cleanup()
     print(json.dumps({'ok': True, 'device': {

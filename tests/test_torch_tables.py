@@ -292,7 +292,8 @@ print(' '.join(names))
     assert out.returncode == 0, out.stderr
     assert out.stdout.split() == [
         'coverage_test_torch', 'inference_demo_torch',
-        'make_notebooks_torch', 'model_options_demo_torch',
-        'multiquantile_demo_torch', 'plot_chains_torch',
-        'tension_injection_probe_torch', 'usage_demo_torch',
+        'make_camb_table_torch', 'make_notebooks_torch',
+        'model_options_demo_torch', 'multiquantile_demo_torch',
+        'plot_chains_torch', 'tension_injection_probe_torch',
+        'usage_demo_torch', 'validate_camb_grid_torch',
         'validate_dispersion_fast_torch', 'validate_posterior_torch']

@@ -87,7 +87,7 @@ def _esm_grid_interp(tables, spec, params):
             los.append(torch.zeros_like(x, dtype=torch.long))
             ts.append(torch.zeros_like(x))
             continue
-        kidx = torch.searchsorted(g, x, right=False)
+        kidx = torch.searchsorted(g, x.contiguous(), right=False)
         lo = torch.clamp(kidx - 1, 0, n - 2)
         t = (x - g[lo]) / (g[lo + 1] - g[lo])
         los.append(lo)
