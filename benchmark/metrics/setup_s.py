@@ -1,0 +1,7 @@
+"""setup_s: seconds from the process's start to the first timed call:
+imports, the CUDA context, the tables, the replicas and the warm-up of the
+cell's own shapes (host clock)."""
+
+
+def read(run):
+    return run.setup_s
