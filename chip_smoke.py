@@ -336,6 +336,10 @@ class _NoJax:
 
 sys.meta_path.insert(0, _NoJax())
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+# the byte rule (each input read once and each output written once), and
+# the port's counters summed over the devices
+from victor_tpu_torch.utils.profiling import nbytes, total  # noqa: E402
 
 NAMES = ['fsigma8', 'beta', 'sigma_v', 'epsilon']
 EXACT = {'streaming_eval': 'exact', 'beta_covariance': 'exact'}
@@ -971,11 +975,13 @@ sys.argv = sys.argv[1:]
 
 
 def report():
-    from victor_tpu_torch.kernels import dispersion, ppoly
+    from victor_tpu_torch.utils.profiling import total
     print(json.dumps({'launches': {
-        'ppoly_eval': ppoly.LAUNCHES, 'backward': ppoly.LAUNCHES_BWD,
-        'second_order': ppoly.LAUNCHES_2ND,
-        'dispersion_final': dispersion.LAUNCHES}}), flush=True)
+        k: total(name) for k, name in (
+            ('ppoly_eval', 'ppoly.launches'),
+            ('backward', 'ppoly.bwd_launches'),
+            ('second_order', 'ppoly.second_order_launches'),
+            ('dispersion_final', 'dispersion.launches'))}}), flush=True)
 
 
 atexit.register(report)
@@ -1176,6 +1182,31 @@ def check(ok, what):
     print(f'  ok: {what}', flush=True)
 
 
+class LaunchCounts:
+    """The port's counters (`utils.profiling.total`) summed over the
+    devices, each counted from its last `zero`:
+    `kernel_launches('ppoly.launches')` reads one (with several names, a
+    tuple), `kernel_launches.zero('ppoly.launches', ...)` starts them
+    again."""
+
+    def __init__(self):
+        self.base = {}
+
+    def zero(self, *names):
+        for name in names:
+            self.base[name] = total(name)
+
+    def __call__(self, *names):
+        got = tuple(total(n) - self.base.get(n, 0) for n in names)
+        return got[0] if len(got) == 1 else got
+
+
+kernel_launches = LaunchCounts()
+#: the lookup kernel's forward, backward and second-order launches
+PPOLY_COUNTERS = ('ppoly.launches', 'ppoly.bwd_launches',
+                  'ppoly.second_order_launches')
+
+
 def load_config(name='boss_config.yaml'):
     """A config of configs/ on the BOSS data, reading the .npz copies of its
     HDF5 files (data/BOSS_DR12_CMASS_npz): the script must run where h5py is
@@ -1314,10 +1345,6 @@ def bound(nbytes, ops, dtype):
     t_ops = ops / (FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), 'bytes' if t_bytes >= t_ops \
         else 'operations'
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def compare_outputs(label, out_k, out_p, dtype):
@@ -1615,7 +1642,6 @@ def dispersion_paths(bundle, ref, grid):
     path."""
     import numpy as np
     import torch
-    from victor_tpu_torch.kernels import dispersion, ppoly
     from victor_tpu_torch.likelihood.batched import make_batched_loglike
 
     i = [str(x) for x in ref['golden_names']].index('dispersion')
@@ -1626,12 +1652,13 @@ def dispersion_paths(bundle, ref, grid):
         loglike = make_batched_loglike(
             bundle, NAMES, opts_kw={**DISP_EXACT, 'dispersion_final': final},
             chunk=CHUNK)
-        ppoly.LAUNCHES = dispersion.LAUNCHES = 0
+        kernel_launches.zero('ppoly.launches', 'dispersion.launches')
         lnl_g, chi_g = loglike([GOLDEN])
         lnl, chi = loglike(grid)
         torch.cuda.synchronize()
         out[final] = (lnl.cpu().numpy(), chi.cpu().numpy(),
-                      dispersion.LAUNCHES, ppoly.LAUNCHES)
+                      *kernel_launches('dispersion.launches',
+                                       'ppoly.launches'))
         chi2_0, lnl_0 = float(chi_g[0]), float(lnl_g[0])
         check(bool(np.isfinite(out[final][:2]).all()),
               f'dispersion ({final}): finite outputs')
@@ -1715,7 +1742,6 @@ def option_paths(cfg):
     import copy
     import torch
     from victor_tpu_torch.io.tables import build_tables
-    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.likelihood.batched import make_batched_loglike
 
     out = {}
@@ -1725,10 +1751,10 @@ def option_paths(cfg):
         loglike = make_batched_loglike(b, NAMES, base_params=extra,
                                        opts_kw={**EXACT, **opts_kw},
                                        chunk=CHUNK)
-        ppoly.LAUNCHES = ppoly.LAUNCHES_MULTI = 0
+        kernel_launches.zero('ppoly.launches', 'ppoly.launches_multi')
         lnl, chi = loglike([GOLDEN, DISPLACED])
         torch.cuda.synchronize()
-        launches = (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI)
+        launches = kernel_launches('ppoly.launches', 'ppoly.launches_multi')
         for i, point in enumerate(('golden', 'displaced')):
             want_chi, want_lnl = OPTION_GOLDENS[name][i]
             got_chi, got_lnl = float(chi[i]), float(lnl[i])
@@ -1766,7 +1792,6 @@ def esm_paths():
     import numpy as np
     import torch
     from victor_tpu_torch.io.tables import build_tables
-    from victor_tpu_torch.kernels import dispersion, ppoly
     from victor_tpu_torch.likelihood.batched import make_batched_loglike
 
     cfg = load_config('esm_sampling_config.yaml')
@@ -1778,11 +1803,12 @@ def esm_paths():
     disp_exact = {**DISP_EXACT, 'dispersion_final': 'exact'}
     launches = {}
     for rsd, kw in (('streaming', EXACT), ('dispersion', disp_exact)):
-        ppoly.LAUNCHES = ppoly.LAUNCHES_MULTI = 0
+        kernel_launches.zero('ppoly.launches', 'ppoly.launches_multi')
         lnl, chi = make_batched_loglike(b, names, opts_kw=kw,
                                         chunk=CHUNK)([ref])
         torch.cuda.synchronize()
-        launches[rsd] = (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI)
+        launches[rsd] = kernel_launches('ppoly.launches',
+                                        'ppoly.launches_multi')
         want_chi, want_lnl = ESM_GOLDENS[rsd]
         got_chi, got_lnl = float(chi[0]), float(lnl[0])
         check(abs(got_chi - want_chi) < 1e-8 and abs(got_lnl - want_lnl) < 1e-8,
@@ -1797,13 +1823,13 @@ def esm_paths():
     theta[0] = torch.as_tensor(ref, device='cuda')
     out = {}
     for final in ('exact', 'fused'):
-        dispersion.LAUNCHES = 0
+        kernel_launches.zero('dispersion.launches')
         lnl, chi = make_batched_loglike(
             b, names, opts_kw={**disp_exact, 'dispersion_final': final},
             chunk=CHUNK)(theta)
         torch.cuda.synchronize()
         out[final] = (np.stack([chi.cpu().numpy(), lnl.cpu().numpy()]),
-                      dispersion.LAUNCHES)
+                      kernel_launches('dispersion.launches'))
     a, e = out['fused'][0], out['exact'][0]
     fin = np.isfinite(e)
     rel = float((np.abs(a - e)[fin] / np.maximum(1.0, np.abs(e[fin]))).max())
@@ -1924,18 +1950,18 @@ def mh_posterior(cfg, tmp):
 
     import numpy as np
     import torch
-    from victor_tpu_torch.kernels import dispersion, ppoly
     from victor_tpu_torch.sampling.diagnostics import split_rhat
 
     run_cfg = {**cfg, 'params': QUAD_BLOCK,
                'sampler': {'kind': 'mh', 'n_chains': 8, 'rhat_stop': 0.01}}
     path = write_yaml(run_cfg, os.path.join(tmp, 'boss_mh.yaml'))
     root = os.path.join(tmp, 'chains', 'mh')
-    ppoly.LAUNCHES = ppoly.LAUNCHES_MULTI = dispersion.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches', 'ppoly.launches_multi',
+                         'dispersion.launches')
     out = cli_json(['run', path, '--samples', str(MH_N_SAMPLES),
                     '--output', root])
     torch.cuda.synchronize()
-    launches = (ppoly.LAUNCHES, dispersion.LAUNCHES)
+    launches = kernel_launches('ppoly.launches', 'dispersion.launches')
     n_draws, n_warmup = out['n_samples'], 2000
     steps = n_warmup + n_draws
     chain_files = [f'{root}.{i}.txt' for i in range(1, 9)]
@@ -2062,17 +2088,16 @@ def ensemble_run(bundle):
     sweeps, on QUAD_BLOCK."""
     import numpy as np
     import torch
-    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.sampling import run_mcmc
 
-    ppoly.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches')
     t0 = time.perf_counter()
     res = run_mcmc(bundle, QUAD_BLOCK, n_walkers=64, max_steps=300,
                    check_every=100, rhat_stop=0.0, move='de', seed=1,
                    device='cuda')
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = ppoly.LAUNCHES
+    launches = kernel_launches('ppoly.launches')
     check(res.chain.shape == (300, 64, 4) and
           bool(np.isfinite(res.chain).all() and
                np.isfinite(res.log_prob).all()),
@@ -2097,7 +2122,6 @@ def joint_fit(cfg, bundle, tmp):
     import numpy as np
     import torch
     from victor_tpu_torch.io.loaders import load_key_value_file
-    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.likelihood.batched import make_batched_loglike
     from victor_tpu_torch.likelihood.multiquantile import (
         build_joint_tables, make_batched_joint_loglike)
@@ -2142,16 +2166,17 @@ def joint_fit(cfg, bundle, tmp):
     print(f'  joint fit (2 quantiles, default modes): {1024 / dt:.1f} evals/s '
           f'(1024 points, chunk {CHUNK}, {int(torch.isfinite(lnl).sum())} '
           'finite)', flush=True)
-    ppoly.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches')
     res = run_hmc_mcmc(jb, QUAD_BLOCK, n_chains=8, n_warmup=100,
                        n_samples=100, segment_steps=200, algorithm='mh',
                        seed=4, device='cuda')
     torch.cuda.synchronize()
     check(res.chain.shape == (100, 8, 4) and
-          bool(np.isfinite(res.log_prob).all()) and ppoly.LAUNCHES > 0,
+          bool(np.isfinite(res.log_prob).all()) and
+          kernel_launches('ppoly.launches') > 0,
           f'MH on the joint fit: chain {res.chain.shape}, finite, acceptance '
           f'{res.acceptance:.3f}, {200 / res.elapsed_s:.1f} steps/s, '
-          f'ppoly_eval launches {ppoly.LAUNCHES}')
+          f'ppoly_eval launches {kernel_launches("ppoly.launches")}')
 
 
 def mh_step_rates(bundle, card, profile_path):
@@ -2456,7 +2481,6 @@ def grad_checks(bundle):
     streaming path. Returns those launches."""
     import numpy as np
     import torch
-    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.sampling.targets import resolve_target
 
     per_call = None
@@ -2465,11 +2489,11 @@ def grad_checks(bundle):
                                          gradient_free=False)
         th = torch.tensor([GOLDEN, DISPLACED], dtype=torch.float64,
                           device='cuda', requires_grad=True)
-        ppoly.LAUNCHES_BWD = 0
+        kernel_launches.zero('ppoly.bwd_launches')
         lnl, _ = loglike(tables, {k: th[:, i] for i, k in enumerate(NAMES)})
         (grad,) = torch.autograd.grad(lnl.sum(), th)
         torch.cuda.synchronize()
-        launches = ppoly.LAUNCHES_BWD
+        launches = kernel_launches('ppoly.bwd_launches')
         want = np.array(GRAD_GOLDENS[name])
         got = grad.cpu().numpy()
         # relative to each entry, or to 1e-6 of the largest where an entry
@@ -2555,7 +2579,6 @@ def hmc_cli(cfg, tmp, seed=HMC_SEED):
     leapfrogs, seconds, draws, R-1)."""
     import numpy as np
     import torch
-    from victor_tpu_torch.kernels import dispersion, ppoly
     from victor_tpu_torch.sampling.diagnostics import (effective_sample_size,
                                                        split_rhat)
 
@@ -2563,14 +2586,14 @@ def hmc_cli(cfg, tmp, seed=HMC_SEED):
                'sampler': {'n_chains': 8, 'rhat_stop': 0.01}}
     path = write_yaml(run_cfg, os.path.join(tmp, f'boss_hmc_{seed}.yaml'))
     root = os.path.join(tmp, 'chains', f'hmc_{seed}')
-    ppoly.LAUNCHES = ppoly.LAUNCHES_BWD = dispersion.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches', 'ppoly.bwd_launches',
+                         'dispersion.launches', 'hmc.leapfrogs')
     out = cli_json(['run', path, '--sampler', 'hmc', '--samples',
                     str(HMC_DRAWS), '--seed', str(seed), '--output', root])
     torch.cuda.synchronize()
-    launches = (ppoly.LAUNCHES_BWD, ppoly.LAUNCHES, dispersion.LAUNCHES)
-    # one forward and one backward lookup of each of three splines per
-    # gradient; the first is the chains' initial point
-    leapfrogs = launches[0] // 3 - 1
+    launches = kernel_launches('ppoly.bwd_launches', 'ppoly.launches',
+                               'dispersion.launches')
+    leapfrogs = kernel_launches('hmc.leapfrogs')
     chains, names = chain_files(root)
     n = out['n_samples']
     check(chains.shape == (n, 8, 4) and np.isfinite(chains).all(),
@@ -2602,13 +2625,12 @@ def nuts_cli(cfg, tmp, warmup=NUTS_WARMUP, samples=NUTS_SAMPLES):
     `samples` draws (max_depth 6 and rhat_stop 0.01 by default)."""
     import numpy as np
     import torch
-    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.sampling import nuts
 
     run_cfg = {**cfg, 'params': QUAD_BLOCK, 'sampler': {'n_chains': 8}}
     path = write_yaml(run_cfg, os.path.join(tmp, 'boss_nuts.yaml'))
     root = os.path.join(tmp, 'chains', 'nuts')
-    ppoly.LAUNCHES_BWD = 0
+    kernel_launches.zero('hmc.leapfrogs')
     nuts.STATS.update(steps=0, doublings=0, accept_stat=0.0)
     out = cli_json(['run', path, '--sampler', 'nuts', '--warmup', str(warmup),
                     '--samples', str(samples), '--output', root])
@@ -2621,7 +2643,7 @@ def nuts_cli(cfg, tmp, warmup=NUTS_WARMUP, samples=NUTS_SAMPLES):
           f'NUTS chains {chains.shape}: every draw finite and inside the '
           'prior box')
     stats = nuts.STATS
-    leapfrogs = ppoly.LAUNCHES_BWD // 3 - 1
+    leapfrogs = kernel_launches('hmc.leapfrogs')
     print(f"  NUTS (8 chains, max_depth 6): {out['n_samples']} draws after "
           f"{warmup} warmup steps, acceptance {out['acceptance']}, mean tree depth "
           f"{stats['doublings'] / stats['steps']:.3f}, mean acceptance "
@@ -2819,10 +2841,10 @@ def compare_second_order(label, x, c, q, g, u, V, clamp, wants,
         return ppoly.ppoly_eval_second_order_composed(x, c, q, g, u, V, clamp,
                                                       *wants)
 
-    counts = ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND
+    counts = kernel_launches(*PPOLY_COUNTERS)
     got, again = kernel(), kernel()
     per_call = 1 + bool(wants[0] and u is not None)
-    check((ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND) ==
+    check(kernel_launches(*PPOLY_COUNTERS) ==
           (counts[0], counts[1], counts[2] + 2 * per_call),
           f'{label}: {per_call} second-order launch(es) per call, no '
           'forward or backward launch')
@@ -3026,17 +3048,16 @@ def hessian_timing(bundle):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from victor_tpu_torch.kernels import ppoly
 
     neg_loglike_hessian(bundle, {}, [GOLDEN])          # warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ppoly.LAUNCHES_2ND = 0
+    kernel_launches.zero('ppoly.second_order_launches')
     t0 = time.perf_counter()
     neg_loglike_hessian(bundle, {}, [GOLDEN])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ppoly.LAUNCHES_2ND
+    launches = kernel_launches('ppoly.second_order_launches')
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3239,20 +3260,21 @@ def bootstrap_check(path):
     odd = []            # calls that did not launch the fused kernel alone
 
     def count(x, c, q, g, u, V, clamp=True, *wants):
-        before = ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND
+        before = kernel_launches(*PPOLY_COUNTERS)
         out = real(x, c, q, g, u, V, clamp, *wants)
         key = lookup_key(c, clamp)
         calls, launches = per_lookup.get(key, (0, 0))
-        made = ppoly.LAUNCHES_2ND - before[2]
+        made = kernel_launches('ppoly.second_order_launches') - before[2]
         per_lookup[key] = calls + 1, launches + made
         per_call = 1 + bool((wants[0] if wants else True) and u is not None)
-        if made != per_call or (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD) != \
+        if made != per_call or \
+                kernel_launches('ppoly.launches', 'ppoly.bwd_launches') != \
                 before[:2]:
             odd.append(key)
         return out
 
     torch.cuda.synchronize()
-    ppoly.LAUNCHES = ppoly.LAUNCHES_BWD = ppoly.LAUNCHES_2ND = 0
+    kernel_launches.zero(*PPOLY_COUNTERS)
     ppoly.ppoly_eval_second_order = count
     t0 = time.perf_counter()
     try:
@@ -3262,7 +3284,7 @@ def bootstrap_check(path):
     finally:
         ppoly.ppoly_eval_second_order = real
     wall = time.perf_counter() - t0
-    launches = (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND)
+    launches = kernel_launches(*PPOLY_COUNTERS)
     main, refits = cap.results[0], cap.results[1:]
     check_map(main, 'fit (in process)')
     sd = np.array(FIT_GOLDENS['std'])
@@ -3357,7 +3379,6 @@ class LaunchLog:
         self.per_call, self.by_lookup = [], {}
 
     def __enter__(self):
-        from victor_tpu_torch.kernels import ppoly
         from victor_tpu_torch.ops import splines
         self.cuda = splines.ppoly_eval_cuda
 
@@ -3367,9 +3388,9 @@ class LaunchLog:
             return self.cuda(*args)
 
         def wrapped(*args, **kw):
-            before = ppoly.LAUNCHES
+            before = kernel_launches('ppoly.launches')
             out = self.real(*args, **kw)
-            self.per_call.append(ppoly.LAUNCHES - before)
+            self.per_call.append(kernel_launches('ppoly.launches') - before)
             return out
         splines.ppoly_eval_cuda = counted
         setattr(self.module, self.name, wrapped)
@@ -3410,11 +3431,11 @@ def smc_cli(tmp):
     import numpy as np
     import torch
     import victor_tpu_torch.sampling as sampling
-    from victor_tpu_torch.kernels import dispersion, ppoly
     from victor_tpu_torch.sampling import smc
 
     root = os.path.join(tmp, 'chains', 'smc')
-    ppoly.LAUNCHES = ppoly.LAUNCHES_MULTI = dispersion.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches', 'ppoly.launches_multi',
+                         'dispersion.launches')
     t0 = time.perf_counter()
     with LaunchLog(smc, '_stage') as log, \
             Captured('run_smc', sampling) as cap:
@@ -3422,7 +3443,7 @@ def smc_cli(tmp):
                         '--output', root])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (ppoly.LAUNCHES, dispersion.LAUNCHES)
+    launches = kernel_launches('ppoly.launches', 'dispersion.launches')
     res = cap.results[0]
     stages = out['n_stages']
     evals = smc_evals(res, 5)
@@ -3482,11 +3503,11 @@ def ns_cli(tmp):
     NestedResult, its JSON, the LaunchLog, launches and seconds."""
     import torch
     import victor_tpu_torch.sampling as sampling
-    from victor_tpu_torch.kernels import dispersion, ppoly
     from victor_tpu_torch.sampling import nested
 
     root = os.path.join(tmp, 'chains', 'ns')
-    ppoly.LAUNCHES = ppoly.LAUNCHES_MULTI = dispersion.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches', 'ppoly.launches_multi',
+                         'dispersion.launches')
     with LaunchLog(nested, '_step') as log, \
             Captured('run_nested', sampling) as cap:
         out = cli_json(['run', evidence_path(tmp), '--sampler', 'ns',
@@ -3498,14 +3519,15 @@ def ns_cli(tmp):
           f'{res.logz_se:.4f}, H {res.h:.3f} nats, ESS {res.ess:.0f}, '
           f"{out['elapsed_s']} s, {res.n_like / out['elapsed_s']:.1f} "
           f'evals/s; ppoly_eval launches per iteration {sorted(set(log.per_call))}'
-          f' ({ppoly.LAUNCHES} in all), by lookup {log.by_lookup}',
+          f' ({kernel_launches("ppoly.launches")} in all), by lookup '
+          f'{log.by_lookup}',
           flush=True)
     evidence_gate(res, 'NS')
     posterior_gates(out, 'NS', 0.2, 0.15)
     check(len(log.per_call) == res.n_iter and min(log.per_call) > 0 and
-          dispersion.LAUNCHES == 0,
+          kernel_launches('dispersion.launches') == 0,
           f'ppoly_eval launched on every NS iteration ({res.n_iter})')
-    return res, out, log, ppoly.LAUNCHES, out['elapsed_s']
+    return res, out, log, kernel_launches('ppoly.launches'), out['elapsed_s']
 
 
 def evidence_profile(bundle, particles, card):
@@ -3688,10 +3710,9 @@ def post_check(bundle, tmp, smc_root):
     deltas (POST_GOLDENS)."""
     import numpy as np
     import torch
-    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.sampling import reweight
 
-    ppoly.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches')
     t0 = time.perf_counter()
     out = cli_json(['post', evidence_path(tmp), '--chains', smc_root,
                     '--set', 'data.likelihood.form=gaussian', '--output',
@@ -3700,9 +3721,10 @@ def post_check(bundle, tmp, smc_root):
     print(f"  post (2048 particles, sellentin -> gaussian): Delta lnZ "
           f"{out['delta_logz']} +- {out['delta_logz_se']}, efficiency "
           f"{out['efficiency']}, {time.perf_counter() - t0:.2f} s, "
-          f'ppoly_eval launches {ppoly.LAUNCHES}', flush=True)
+          f'ppoly_eval launches {kernel_launches("ppoly.launches")}',
+          flush=True)
     check(math.isfinite(out['delta_logz']) and out['efficiency'] > 0.5 and
-          ppoly.LAUNCHES > 0,
+          kernel_launches('ppoly.launches') > 0,
           f"post: finite Delta lnZ, efficiency {out['efficiency']} > 0.5, "
           'through the ppoly_eval kernel')
     lo = [max(QUAD_MEAN[k] - 3 * QUAD_STD[k], QUAD_BLOCK[k]['prior']['min'])
@@ -3764,7 +3786,7 @@ def compare_check(tmp):
         return real(*args)
 
     path = evidence_path(tmp)
-    dispersion.LAUNCHES = 0
+    kernel_launches.zero('dispersion.launches')
     dispersion.dispersion_final_cuda = record
     try:
         with Captured('run_smc', sampling) as cap:
@@ -3775,7 +3797,7 @@ def compare_check(tmp):
     finally:
         dispersion.dispersion_final_cuda = real
     torch.cuda.synchronize()
-    launches = dispersion.LAUNCHES
+    launches = kernel_launches('dispersion.launches')
     ra, rb = cap.results
     print(f"  compare (streaming vs dispersion, final 'fused'; 1024 "
           f"particles, 4 moves): Delta lnZ {out['delta_log_evidence']} +- "
@@ -3880,13 +3902,12 @@ class CountedCalls:
     runs fn and checks that the launch count rose by `expected`."""
 
     def __init__(self):
-        from victor_tpu_torch.kernels import ppoly
-        self.ppoly, self.log = ppoly, []
+        self.log = []
 
     def call(self, label, fn, expected):
-        before = self.ppoly.LAUNCHES
+        before = kernel_launches('ppoly.launches')
         out = fn()
-        launched = self.ppoly.LAUNCHES - before
+        launched = kernel_launches('ppoly.launches') - before
         self.log.append((label, launched))
         check(launched == expected,
               f'{label}: {launched} ppoly_eval launches ({expected})')
@@ -4097,7 +4118,6 @@ def scale_out(bundle, card, probe_summary):
 
     import numpy as np
     import torch
-    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.likelihood.batched import (make_batched_loglike,
                                                      make_sharded_loglike)
     from victor_tpu_torch.parallel import make_mesh
@@ -4112,10 +4132,10 @@ def scale_out(bundle, card, probe_summary):
     sharded = {}
     for step, mesh in meshes.items():
         fn = make_sharded_loglike(bundle, NAMES, mesh, opts_kw=EXACT)
-        ppoly.LAUNCHES = 0
+        kernel_launches.zero('ppoly.launches')
         got = fn(theta)
         torch.cuda.synchronize()
-        launches = ppoly.LAUNCHES
+        launches = kernel_launches('ppoly.launches')
         err = rel_err(got, want)
         check(err <= SCALE_TOL and got[0].device == theta.device,
               f'16{step}: make_sharded_loglike over {mesh.size} shard(s) of '
@@ -4219,7 +4239,7 @@ def class_surface(bundle, cfg, esm_bundle, esm_cfg):
     import torch
     from victor_tpu_torch import (BackgroundCosmology, CCFFit,
                                   ExcursionSetProfile)
-    from victor_tpu_torch.kernels import dispersion, ppoly
+    from victor_tpu_torch.kernels import dispersion
     from victor_tpu_torch.kernels.ppoly import (ppoly_eval_cuda,
                                                 ppoly_eval_plain)
     from victor_tpu_torch.likelihood.batched import make_batched_loglike
@@ -4232,7 +4252,7 @@ def class_surface(bundle, cfg, esm_bundle, esm_cfg):
     check(fit.device.type == 'cuda' and fit.dtype == torch.float64,
           f'CCFFit adopted the BOSS bundle on {fit.device}, {fit.dtype}')
     counted = CountedCalls()
-    ppoly.LAUNCHES = dispersion.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches', 'dispersion.launches')
 
     # a. CCFFit on the BOSS config, f64: every theory call 3 lookups
     print('class surface: CCFFit (15a)', flush=True)
@@ -4304,8 +4324,8 @@ def class_surface(bundle, cfg, esm_bundle, esm_cfg):
             captured.append(tuple(t.clone() for t in args))
         return real(*args)
 
-    ppoly_before = ppoly.LAUNCHES
-    dispersion.LAUNCHES = 0
+    ppoly_before = kernel_launches('ppoly.launches')
+    kernel_launches.zero('dispersion.launches')
     dispersion.dispersion_final_cuda = record
     try:
         for i, p in enumerate((golden, displaced)):
@@ -4319,11 +4339,12 @@ def class_surface(bundle, cfg, esm_bundle, esm_cfg):
                   f'lnL {lnl:.10f}; relative to the batched path {err:.2e}')
     finally:
         dispersion.dispersion_final_cuda = real
-    disp_launches = dispersion.LAUNCHES
+    disp_launches = kernel_launches('dispersion.launches')
     check(disp_launches == 2, f'dispersion_final launches in the two class '
           f'calls: {disp_launches} (2)')
     print(f'  the two dispersion calls: ppoly_eval '
-          f'{ppoly.LAUNCHES - ppoly_before} launches', flush=True)
+          f'{kernel_launches("ppoly.launches") - ppoly_before} launches',
+          flush=True)
     disp_result = compare_dispersion(captured[0], torch.float64,
                                      planted=False)
 
@@ -4331,7 +4352,7 @@ def class_surface(bundle, cfg, esm_bundle, esm_cfg):
     print('class surface: the cobaya adapter through a stand-in (15c)',
           flush=True)
     adapter_checks(fit, esm_fit, cfg, esm_cfg, counted)
-    launches = ppoly.LAUNCHES
+    launches = kernel_launches('ppoly.launches')
     print(f'  ppoly_eval launches of 15a-c: {launches} ('
           + ', '.join(f'{label} {n}' for label, n in counted.log) + ')',
           flush=True)
@@ -4457,17 +4478,16 @@ def quadrature(bundle, n):
     the tool's moments, marginal edge masses and logZ under the priors of
     configs/boss_sampling_config.yaml."""
     import torch
-    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.sampling.priors import ParamSpace
     vp = tool('validate_posterior_torch')
     axes = vp.quadrature_axes(n)
     lnl_of = vp.grid_loglike(bundle, 'cuda')
     torch.cuda.synchronize()
-    ppoly.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches')
     t0 = time.perf_counter()
     lnl = vp.evaluate_grid(lnl_of, vp.quadrature_grid(axes), n)
     seconds = time.perf_counter() - t0
-    launches = ppoly.LAUNCHES
+    launches = kernel_launches('ppoly.launches')
     # the tool evaluates blocks of n * n * 8 points in chunks of 128
     total, block = n ** 4, n * n * 8
     chunks = sum(-(-min(block, total - i) // vp.CHUNK)
@@ -4855,7 +4875,6 @@ def examples_phase(card, full=False):
 
     import numpy as np
     import torch
-    from victor_tpu_torch.kernels import ppoly
 
     flags = {'usage_demo_torch': ['--sample'] if full else [],
              'inference_demo_torch': ['--smc'] if full else []}
@@ -4867,11 +4886,10 @@ def examples_phase(card, full=False):
                   f'{name}.py {" ".join(argv + ["--device", "cuda"])}',
                   flush=True)
             torch.cuda.synchronize()
-            ppoly.LAUNCHES = ppoly.LAUNCHES_BWD = ppoly.LAUNCHES_2ND = 0
+            kernel_launches.zero(*PPOLY_COUNTERS)
             calls.stage = name
             out, lines, seconds = run_example(name, argv)
-            launches = (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD,
-                        ppoly.LAUNCHES_2ND)
+            launches = kernel_launches(*PPOLY_COUNTERS)
             runs[name] = (out, lines, seconds, launches)
             print(f'  {name}: {seconds:.2f} s ({card}); launches '
                   f'forward {launches[0]}, backward {launches[1]}, '
@@ -5035,7 +5053,6 @@ def table_modes(card):
     import numpy as np
     import torch
     from victor_tpu_torch.io.tables import build_tables
-    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.likelihood.batched import make_batched_loglike
     from victor_tpu_torch.models.esm import ExcursionSetProfile
     from victor_tpu_torch.sampling.optimize import value_grad_hessian
@@ -5075,11 +5092,11 @@ def table_modes(card):
                           f'{err:.3e} (< 1e-8)')
 
     # (ii) table mode at the ESM ref point
-    ppoly.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches')
     lnl, chi = make_batched_loglike(bundles['table'], names9, opts_kw=EXACT,
                                     chunk=CHUNK)([ref9])
     torch.cuda.synchronize()
-    table_launches = ppoly.LAUNCHES
+    table_launches = kernel_launches('ppoly.launches')
     got = [float(chi[0]), float(lnl[0])]
     values('19a (ii) table mode at the ref point', got, g['table ref'])
     eh = ESM_GOLDENS['streaming']
@@ -5094,11 +5111,11 @@ def table_modes(card):
     # recorded for (v)
     points = [ref9 + v for v in ESM_GRID_POINTS.values()]
     with KernelCalls() as calls:
-        ppoly.LAUNCHES = 0
+        kernel_launches.zero('ppoly.launches')
         lnl, chi = make_batched_loglike(bundles['grid'], names,
                                         opts_kw=EXACT, chunk=CHUNK)(points)
         torch.cuda.synchronize()
-        grid_launches = ppoly.LAUNCHES
+        grid_launches = kernel_launches('ppoly.launches')
         for i, p in enumerate(ESM_GRID_POINTS):
             values(f'19a (iii) grid mode, {p} (H0, ns) = '
                    f'{tuple(ESM_GRID_POINTS[p])}',
@@ -5110,11 +5127,11 @@ def table_modes(card):
                                          gradient_free=False)
         th = torch.tensor(points, dtype=f64, device='cuda',
                           requires_grad=True)
-        ppoly.LAUNCHES_BWD = 0
+        kernel_launches.zero('ppoly.bwd_launches')
         lnl = loglike(tables, {k: th[:, i] for i, k in enumerate(names)})[0]
         (grad,) = torch.autograd.grad(lnl.sum(), th)
         torch.cuda.synchronize()
-        bwd_launches = ppoly.LAUNCHES_BWD
+        bwd_launches = kernel_launches('ppoly.bwd_launches')
         for i, p in enumerate(ESM_GRID_POINTS):
             want = np.array(g[f'grad {p}'])
             got = grad[i].cpu().numpy()
@@ -5135,11 +5152,11 @@ def table_modes(card):
         def neg(t):
             return -loglike(tables, {k: t[:, i] for i, k in
                                      enumerate(names)})[0]
-        ppoly.LAUNCHES_2ND = 0
+        kernel_launches.zero('ppoly.second_order_launches')
         th0 = torch.tensor([points[0]], dtype=f64, device='cuda')
         H = value_grad_hessian(neg, th0)[2][0].cpu().numpy()
         torch.cuda.synchronize()
-        so_launches = ppoly.LAUNCHES_2ND
+        so_launches = kernel_launches('ppoly.second_order_launches')
     want = np.array(g['hessian off-node'])
     err = float(np.abs(H - want).max() / np.abs(want).max())
     check(np.isfinite(H).all() and err <= 1e-7,
@@ -5311,7 +5328,6 @@ def main() -> int:
 
     sys.path.insert(0, REPO)
     from victor_tpu_torch.io.tables import build_tables
-    from victor_tpu_torch.kernels import ppoly
     from victor_tpu_torch.likelihood.batched import make_batched_loglike
 
     if args.nuts_child:
@@ -5409,11 +5425,11 @@ def main() -> int:
     ref = np.load(os.path.join(REPO, 'tests', 'fixtures', 'reference_boss.npz'))
     grid = ref['grid_params']
 
-    ppoly.LAUNCHES = 0
+    kernel_launches.zero('ppoly.launches')
     lnl_g, chi_g = loglike([GOLDEN])
     lnl, chi = loglike(grid)
     torch.cuda.synchronize()
-    launches = ppoly.LAUNCHES
+    launches = kernel_launches('ppoly.launches')
     chunks = 1 + -(-len(grid) // CHUNK)
     print('main path:', flush=True)
     check(lnl_g.shape == (1,) and lnl.shape == chi.shape == (len(grid),),

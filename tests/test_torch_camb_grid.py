@@ -33,8 +33,8 @@ import validate_camb_grid_torch as tvcg  # noqa: E402
 from _torch_common import load_config  # noqa: E402
 from victor_tpu_torch.io import build_tables as tbuild  # noqa: E402
 from victor_tpu_torch.io.tables import tables_to_arrays  # noqa: E402
-from victor_tpu_torch.kernels import ppoly  # noqa: E402
 from victor_tpu_torch.sampling import targets as ttargets  # noqa: E402
+from victor_tpu_torch.utils.profiling import total  # noqa: E402
 
 torch.set_num_threads(1)
 NARROW = {'n_mu': 20, 'n_v': 10}
@@ -486,10 +486,11 @@ def test_grid_gradient_on_card(cuda_device, tmp_path):
     tb = tbuild(cfg['model'], cfg['data'], **NARROW, device='cpu')
     names, points = _grad_names(), _grad_points()
     lnl, grad = _port_grad(tb, names, points, 'cpu')
-    before = (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD)
+    before = (total('ppoly.launches'), total('ppoly.bwd_launches'))
     lnl_c, grad_c = _port_grad(tb.to(cuda_device, torch.float64), names,
                                points, cuda_device)
-    assert ppoly.LAUNCHES > before[0] and ppoly.LAUNCHES_BWD > before[1]
+    assert total('ppoly.launches') > before[0] and \
+        total('ppoly.bwd_launches') > before[1]
     np.testing.assert_allclose(lnl_c, lnl, rtol=1e-9)
     np.testing.assert_allclose(grad_c, grad, rtol=1e-9,
                                atol=1e-9 * np.abs(grad).max())

@@ -19,8 +19,14 @@ import torch
 
 from victor_tpu_torch.kernels import _build, dispersion, ppoly
 from victor_tpu_torch.ops import splines as tsp
+from victor_tpu_torch.utils.profiling import total
 
 torch.set_num_threads(1)
+
+
+#: the lookup kernel's forward, backward and second-order launch counters
+ALL_PPOLY = ('ppoly.launches', 'ppoly.bwd_launches',
+             'ppoly.second_order_launches')
 
 
 def _knots(rng, n):
@@ -83,10 +89,10 @@ def test_cpu_tensors_take_the_plain_version():
     x = _knots(rng, 31)
     c = _coeffs(x, rng.standard_normal((2, 31)))
     q = _queries(rng, x, (2, 50))
-    before = ppoly.LAUNCHES
+    before = total('ppoly.launches')
     got = tsp.ppoly_eval(_t(x), _t(c), _t(q))
     want = ppoly.ppoly_eval_plain(_t(x), _t(c), _t(q))
-    assert ppoly.LAUNCHES == before
+    assert total('ppoly.launches') == before
     np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
@@ -96,9 +102,9 @@ def test_multi_channel_cpu_tensors_take_the_plain_version(shared):
     x = _knots(rng, 30)
     c = _coeffs(x, rng.standard_normal((3, 30) if shared else (2, 3, 30)))
     q = _queries(rng, x, (2, 60))
-    before = (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI)
+    before = (total('ppoly.launches'), total('ppoly.launches_multi'))
     got = tsp.ppoly_eval_multi(_t(x), _t(c), _t(q))
-    assert (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI) == before
+    assert (total('ppoly.launches'), total('ppoly.launches_multi')) == before
     want = ppoly.ppoly_eval_plain(_t(x), _t(c if not shared else c[None]),
                                   _t(q))
     assert got.shape == (2, 3, 60)
@@ -265,10 +271,10 @@ def test_backward_wrapper_refuses_on_cpu(case, match):
            'grad_dtype': (x, c, q, g.float()),
            'grad_strides': (x, c, q, torch.zeros(7, 2, dtype=f64).t()),
            'coeff_rows': (x, torch.zeros(3, 29, 4, dtype=f64), q, g)}[case]
-    before = ppoly.LAUNCHES_BWD
+    before = total('ppoly.bwd_launches')
     with pytest.raises(ValueError, match=match):
         ppoly.ppoly_eval_backward_cuda(*bad)
-    assert ppoly.LAUNCHES_BWD == before
+    assert total('ppoly.bwd_launches') == before
 
 
 @pytest.mark.parametrize('B,M,K,n,want_dc,with_v', [
@@ -323,10 +329,10 @@ def test_second_order_wrapper_refuses_on_cpu(case, match):
            'coeff_rows': (x, torch.zeros(3, 29, 4, dtype=f64), q, g, q, None),
            'five_channels': (x, torch.zeros(2, 5, 29, 4, dtype=f64), q,
                              torch.zeros(2, 5, 7, dtype=f64), q, None)}[case]
-    before = ppoly.LAUNCHES_2ND
+    before = total('ppoly.second_order_launches')
     with pytest.raises(ValueError, match=match):
         ppoly.ppoly_eval_second_order_cuda(*bad)
-    assert ppoly.LAUNCHES_2ND == before
+    assert total('ppoly.second_order_launches') == before
 
 
 @pytest.mark.parametrize('with_u,with_v', [(True, True), (True, False),
@@ -349,9 +355,9 @@ def test_second_order_on_cpu_takes_the_plain_composition(with_u, with_v,
                                   g_np))
     u = _t(rng.standard_normal((B, M))) if with_u else None
     V = _t(rng.standard_normal(c_np.shape)) if with_v else None
-    before = (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND)
+    before = tuple(map(total, ALL_PPOLY))
     got = ppoly.ppoly_eval_second_order(x, c, q, g, u, V, True, *wants)
-    assert (ppoly.LAUNCHES, ppoly.LAUNCHES_BWD, ppoly.LAUNCHES_2ND) == before
+    assert tuple(map(total, ALL_PPOLY)) == before
     composed = ppoly.ppoly_eval_second_order_composed(x, c, q, g, u, V, True,
                                                       *wants)
     want = _second_order_plain(x, c, q, g,
@@ -405,10 +411,10 @@ def test_kernel_wrapper_refuses_on_cpu(case, error, match):
         'q_1d': (x, c, q[0]),
         'not_contiguous': (x, c, torch.zeros(7, 2, dtype=f64).t()),
     }[case]
-    before = ppoly.LAUNCHES
+    before = total('ppoly.launches')
     with pytest.raises(error, match=match):
         ppoly.ppoly_eval_cuda(*bad)
-    assert ppoly.LAUNCHES == before
+    assert total('ppoly.launches') == before
 
 
 @pytest.mark.parametrize('name', ['ppoly_eval', 'dispersion_final'])
@@ -424,10 +430,10 @@ def test_dispersion_cpu_tensors_take_the_plain_version(shared):
     rng = np.random.default_rng(16)
     args = [_t(a) for a in _dispersion_inputs(rng, 3, 4, 20,
                                               rows=1 if shared else None)]
-    before = dispersion.LAUNCHES
+    before = total('dispersion.launches')
     got = tsp.dispersion_final(*args)
     want = dispersion.dispersion_final_plain(*args)
-    assert dispersion.LAUNCHES == before
+    assert total('dispersion.launches') == before
     for g, w in zip(got, want):
         assert g.shape == (3, 4, 20)
         np.testing.assert_array_equal(g.numpy(), w.numpy())
@@ -486,6 +492,39 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+def test_wrappers_count_launches_and_bytes_on_their_device(cuda_device):
+    """Each wrapper counts its launches under its device's index, and while
+    a profiler runs the bytes of the tensors it reads once and writes once
+    (none without a profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+    from victor_tpu_torch.utils.profiling import nbytes
+    rng = np.random.default_rng(23)
+    x_np = _knots(rng, 31)
+    c_np = _coeffs(x_np, rng.standard_normal((8, 31)))
+    x, c, q, g, u, V = (torch.as_tensor(a, device=cuda_device)
+                        for a in (x_np, c_np, _queries(rng, x_np, (8, 500)),
+                                  rng.standard_normal((8, 500)),
+                                  rng.standard_normal((8, 500)),
+                                  rng.standard_normal(c_np.shape)))
+    index = q.device.index
+    names = ALL_PPOLY + ('ppoly.bytes',)
+
+    def launch_all():
+        before = [total(n, index) for n in names]
+        outs = (ppoly.ppoly_eval_cuda(x, c, q),
+                ppoly.ppoly_eval_backward_cuda(x, c, q, g),
+                ppoly.ppoly_eval_second_order_cuda(x, c, q, g, u, V))
+        return outs, [total(n, index) - b for n, b in zip(names, before)]
+    _, grew = launch_all()
+    assert grew == [1, 1, 2, 0]
+    with profile(activities=[ProfilerActivity.CPU]):
+        (out, (dq, dc), (d_c, d_q, d_g)), grew = launch_all()
+    assert grew[:3] == [1, 1, 2]
+    assert grew[3] == nbytes(x, c, q, out) + nbytes(x, c, q, g, dq, dc) + \
+        nbytes(x, c, q, g, u, V, d_c, d_q, d_g)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('dtype,tol', [(torch.float64, 1e-12),
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize('clamp', [True, False])
@@ -496,9 +535,9 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype, tol, clamp):
     q = _queries(rng, x, (16, 3000))
     args = [torch.as_tensor(a, device=cuda_device).to(dtype)
             for a in (x, c, q)]
-    before = ppoly.LAUNCHES
+    before = total('ppoly.launches')
     got = ppoly.ppoly_eval_cuda(*args, clamp)
-    assert ppoly.LAUNCHES == before + 1
+    assert total('ppoly.launches') == before + 1
     want = ppoly.ppoly_eval_plain(*args, clamp)
     torch.cuda.synchronize()
     assert torch.equal(torch.isnan(got), torch.isnan(want))
@@ -531,9 +570,9 @@ def test_cuda_tensors_launch_the_kernel_through_ops(cuda_device):
     gpu_surf = surf.to(cuda_device, torch.float64)
     assert not surf.y_const
     for call, launches in zip(calls, (1, 1, 2 * surf.cu.shape[0])):
-        before = ppoly.LAUNCHES
+        before = total('ppoly.launches')
         got = call(cuda_device, gpu_surf)
-        assert ppoly.LAUNCHES == before + launches
+        assert total('ppoly.launches') == before + launches
         want = call('cpu', surf)
         np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
                                    atol=1e-12, equal_nan=True)
@@ -555,10 +594,10 @@ def test_multi_channel_kernel_matches_plain_on_card(cuda_device, dtype, tol,
     q = _queries(rng, x, (16, 3000))
     args = [torch.as_tensor(a, device=cuda_device).to(dtype).contiguous()
             for a in (x, c, q)]
-    before = (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI)
+    before = (total('ppoly.launches'), total('ppoly.launches_multi'))
     got = ppoly.ppoly_eval_cuda(*args)
-    assert (ppoly.LAUNCHES, ppoly.LAUNCHES_MULTI) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert (total('ppoly.launches'), total('ppoly.launches_multi')) == \
+        (before[0] + 1, before[1] + 1)
     want = ppoly.ppoly_eval_plain(*args)
     torch.cuda.synchronize()
     assert got.shape == (16, K, 3000)
@@ -650,9 +689,9 @@ def test_kernel_edge_shapes_match_plain_on_card(cuda_device, dtype, tol, B,
                   for a in (x_np, c_np, base_np))
     q = base[offset:].view(B, M)
     assert q.storage_offset() == offset
-    before = ppoly.LAUNCHES
+    before = total('ppoly.launches')
     got = ppoly.ppoly_eval_cuda(x, c, q, clamp)
-    assert ppoly.LAUNCHES == before + 1
+    assert total('ppoly.launches') == before + 1
     want = ppoly.ppoly_eval_plain(x, c, q, clamp)
     torch.cuda.synchronize()
     assert got.shape == want.shape
@@ -725,13 +764,13 @@ def test_backward_kernel_matches_plain_on_card(cuda_device, dtype, tol, B, M,
     x, c, base, g = (torch.as_tensor(a, device=cuda_device).to(dtype)
                      for a in (x_np, c_np, base_np, g_np))
     q = base[offset:].view(B, M)
-    before = ppoly.LAUNCHES_BWD
+    before = total('ppoly.bwd_launches')
     got = ppoly.ppoly_eval_backward_cuda(x, c, q, g, clamp)
     again = ppoly.ppoly_eval_backward_cuda(x, c, q, g, clamp)
     dq_only = ppoly.ppoly_eval_backward_cuda(x, c, q, g, clamp,
                                              want_dcoeffs=False)
     dc_only = ppoly.ppoly_eval_backward_cuda(x, c, q, g, clamp, want_dq=False)
-    assert ppoly.LAUNCHES_BWD == before + 4
+    assert total('ppoly.bwd_launches') == before + 4
     assert dq_only[1] is None and dc_only[0] is None
     want = ppoly.ppoly_eval_backward_plain(
         *(a.double() for a in (x, c, q, g)), clamp)
@@ -837,12 +876,12 @@ def test_autograd_runs_the_backward_kernel_through_ops(cuda_device):
             out = call(dev, s, qq, cc)
             weight = torch.sin(torch.arange(out.numel(), dtype=out.dtype,
                                             device=dev)).reshape(out.shape)
-            before = ppoly.LAUNCHES_BWD
+            before = total('ppoly.bwd_launches')
             (out * weight).sum().backward()
             grads[str(dev)] = [qq.grad] + ([cc.grad] if cc.grad is not None
                                            else [])
             if dev != 'cpu':
-                assert ppoly.LAUNCHES_BWD == before + lookups
+                assert total('ppoly.bwd_launches') == before + lookups
         for got, want in zip(grads[str(cuda_device)], grads['cpu']):
             np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
                                        rtol=0, atol=1e-12 * float(
@@ -896,10 +935,10 @@ def test_second_order_matches_plain_on_card(cuda_device, dtype, tol, B, M, n,
         for a in (x_np, c_np, base_np, g_np, rng.standard_normal((B, M)),
                   rng.standard_normal(c_np.shape)))
     q = base[offset:].view(B, M)
-    before = ppoly.LAUNCHES_2ND
+    before = total('ppoly.second_order_launches')
     got = ppoly.ppoly_eval_second_order(x, c, q, g, u, V, clamp)
     again = ppoly.ppoly_eval_second_order(x, c, q, g, u, V, clamp)
-    assert ppoly.LAUNCHES_2ND == before + 4
+    assert total('ppoly.second_order_launches') == before + 4
     want = _second_order_plain(x, c, q, g, u, V, clamp)
     torch.cuda.synchronize()
     cq = ppoly.clip_factor(x.double(), q.double()) if clamp else 1.0
@@ -951,10 +990,11 @@ def test_second_order_fused_equals_composed_on_card(cuda_device, dtype, B, M,
                           (u, None, (True, True, False)),
                           (None, V, (False, True, True)),
                           (u, V, (False, True, True))):
-        before = ppoly.LAUNCHES_2ND
+        before = total('ppoly.second_order_launches')
         got = ppoly.ppoly_eval_second_order_cuda(x, c, q, g, uu, VV, clamp,
                                                  *wants)
-        assert ppoly.LAUNCHES_2ND == before + 1 + (wants[0] and uu is not None)
+        assert total('ppoly.second_order_launches') == \
+            before + 1 + (wants[0] and uu is not None)
         want = ppoly.ppoly_eval_second_order_composed(x, c, q, g, uu, VV,
                                                       clamp, *wants)
         torch.cuda.synchronize()
@@ -986,11 +1026,11 @@ def test_second_derivatives_through_ops_launch_the_kernels(cuda_device):
         dq, dc = torch.autograd.grad((out * _t(w).to(dev)).sum(), (qq, cc),
                                      create_graph=True)
         s = (dq * _t(u).to(dev)).sum() + (dc * _t(V).to(dev)).sum()
-        before = ppoly.LAUNCHES_2ND
+        before = total('ppoly.second_order_launches')
         results[dev.type] = torch.autograd.grad(s, (qq, cc),
                                                 retain_graph=True)
         if dev.type == 'cuda':
-            assert ppoly.LAUNCHES_2ND == before + 2
+            assert total('ppoly.second_order_launches') == before + 2
             with pytest.raises(RuntimeError, match='third'):
                 torch.autograd.grad(s, qq, create_graph=True)
     for got, want in zip(results['cuda'], results['cpu']):
@@ -1037,9 +1077,9 @@ def test_dispersion_kernel_matches_plain_on_card(cuda_device, dtype, tol,
     rng = np.random.default_rng(19)
     args = [torch.as_tensor(a, device=cuda_device).to(dtype) for a in
             _dispersion_inputs(rng, 6, 10, 3000, rows=1 if shared else None)]
-    before = dispersion.LAUNCHES
+    before = total('dispersion.launches')
     got = dispersion.dispersion_final_cuda(*args)
-    assert dispersion.LAUNCHES == before + 1
+    assert total('dispersion.launches') == before + 1
     want = dispersion.dispersion_final_plain(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, want):
@@ -1059,9 +1099,9 @@ def test_dispersion_cuda_tensors_launch_the_kernel_through_ops(cuda_device):
     and agrees with the same call on the CPU."""
     rng = np.random.default_rng(20)
     cpu = [_t(a) for a in _dispersion_inputs(rng, 3, 50, 300)]
-    before = dispersion.LAUNCHES
+    before = total('dispersion.launches')
     got = tsp.dispersion_final(*(a.to(cuda_device) for a in cpu))
-    assert dispersion.LAUNCHES == before + 1
+    assert total('dispersion.launches') == before + 1
     want = tsp.dispersion_final(*cpu)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
@@ -1107,16 +1147,16 @@ def test_class_surface_on_the_card_launches_the_kernels(cuda_device):
     fused = {'rsd_model': 'dispersion', 'dispersion_interior': 'exact',
              'dispersion_final': 'fused'}
     for kw in ({}, fused):
-        before = (ppoly.LAUNCHES, dispersion.LAUNCHES)
+        before = (total('ppoly.launches'), total('dispersion.launches'))
         got = card.log_likelihood(golden, **kw)
         if not kw:
-            assert ppoly.LAUNCHES == before[0] + 3
-        assert dispersion.LAUNCHES == before[1] + bool(kw)
+            assert total('ppoly.launches') == before[0] + 3
+        assert total('dispersion.launches') == before[1] + bool(kw)
         want = cpu.log_likelihood(golden, **kw)
         np.testing.assert_allclose(got, want, rtol=1e-9)
-    before = ppoly.LAUNCHES
+    before = total('ppoly.launches')
     got = card.theory_multipoles(card.s, golden)
-    assert ppoly.LAUNCHES == before + 3
+    assert total('ppoly.launches') == before + 3
     want = cpu.theory_multipoles(cpu.s, golden)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-12)
@@ -1145,10 +1185,10 @@ def test_sharded_likelihood_on_the_card_launches_per_shard(cuda_device):
                        device='cpu')
     mesh = make_mesh(('walkers',), devices=[cuda_device] * 2)
     sharded = make_sharded_loglike(card, names, mesh, opts_kw=exact)
-    before = ppoly.LAUNCHES
+    before = total('ppoly.launches')
     got = sharded(theta)
     torch.cuda.synchronize()
-    assert ppoly.LAUNCHES == before + 6
+    assert total('ppoly.launches') == before + 6
     want_card = make_batched_loglike(card, names, opts_kw=exact)(theta)
     want_cpu = make_batched_loglike(cpu, names, opts_kw=exact)(theta)
     for g, wc, wh in zip(got, want_card, want_cpu):
@@ -1157,11 +1197,11 @@ def test_sharded_likelihood_on_the_card_launches_per_shard(cuda_device):
                                    rtol=1e-12)
         np.testing.assert_allclose(g.cpu().numpy(), wh.numpy(), rtol=1e-9)
     t = torch.tensor(theta, device=cuda_device, requires_grad=True)
-    before = ppoly.LAUNCHES_BWD
+    before = total('ppoly.bwd_launches')
     g_sh, = torch.autograd.grad(make_sharded_loglike(
         card, names, mesh, gradient_free=False)(t)[0].sum(), t)
     torch.cuda.synchronize()
-    assert ppoly.LAUNCHES_BWD == before + 6
+    assert total('ppoly.bwd_launches') == before + 6
     g_b, = torch.autograd.grad(make_batched_loglike(
         card, names, gradient_free=False)(t)[0].sum(), t)
     np.testing.assert_allclose(g_sh.cpu().numpy(), g_b.cpu().numpy(),
@@ -1222,16 +1262,16 @@ def test_sharded_joint_likelihood_across_cards(cuda_device, tmp_path):
         assert all(b.tables.iaH.device == d for b in r.bundles)
 
     batched = make_batched_joint_loglike(jb, names)
-    before = ppoly.LAUNCHES
+    before = total('ppoly.launches')
     want = batched(theta)
     torch.cuda.synchronize()
-    per_call = ppoly.LAUNCHES - before
+    per_call = total('ppoly.launches') - before
     sharded = make_sharded_joint_loglike(jb, names, mesh)
-    before = ppoly.LAUNCHES
+    before = total('ppoly.launches')
     got = sharded(theta)
     for d in cards:
         torch.cuda.synchronize(d)
-    assert ppoly.LAUNCHES - before == n_dev * per_call
+    assert total('ppoly.launches') - before == n_dev * per_call
     for g, w in zip(got, want):
         assert g.device == cards[0] and g.shape == (n,)
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),

@@ -37,9 +37,9 @@ from _torch_common import REPO, card_line, load_config, require_device  # noqa: 
 
 sys.path.insert(0, REPO)
 from victor_tpu_torch.io import build_tables  # noqa: E402
-from victor_tpu_torch.kernels import ppoly  # noqa: E402
 from victor_tpu_torch.likelihood.batched import make_batched_loglike  # noqa: E402
 from victor_tpu_torch.sampling.priors import ParamSpace  # noqa: E402
+from victor_tpu_torch.utils.profiling import total  # noqa: E402
 
 NAMES = ['fsigma8', 'beta', 'sigma_v', 'epsilon']
 CHUNK = 128
@@ -124,6 +124,7 @@ def report_lines(mean, std, edge, logz):
     return lines
 
 
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument('--ngrid', type=int, default=36)
@@ -140,11 +141,11 @@ def main(argv=None):
     grid = quadrature_grid(axes)
     lnl_of = grid_loglike(bundle, args.device)
 
-    launches = ppoly.LAUNCHES
+    launches = total('ppoly.launches')
     t0 = time.time()
     lnl = evaluate_grid(lnl_of, grid, args.ngrid)
     dt = time.time() - t0
-    launches = ppoly.LAUNCHES - launches
+    launches = total('ppoly.launches') - launches
     print(f'{len(grid):,} likelihood evaluations in {dt:.1f}s '
           f'({len(grid) / dt:,.0f}/s)')
     print(f'on {card_line(args.device)} ({args.device}, f64, exact modes, '

@@ -28,10 +28,8 @@ import ctypes
 import torch
 
 from . import _build
+from ..utils.profiling import count
 from .ppoly import ppoly_eval_plain
-
-#: number of kernel launches since the count was last reset
-LAUNCHES = 0
 
 MAX_KNOTS = 512           # shared memory: 8n + 64(n-1) bytes in f64, < 48 KB
 THREADS = 256             # must match csrc/dispersion_final.cu
@@ -82,8 +80,9 @@ def _entry(dtype: torch.dtype):
 
 
 def dispersion_final_cuda(x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel):
-    """Launch the CUDA kernel on the current stream (no synchronisation)."""
-    global LAUNCHES
+    """Launch the CUDA kernel on the current stream (no synchronisation).
+    Counts `dispersion.launches` on the inputs' device
+    (`utils.profiling`)."""
     args = (x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel)
     names = ('x', 'c_vr', 'c_dvr', 'r_par', 'A', 's_perp', 'iaH', 'resc_vel')
     if not all(t.is_cuda for t in args):
@@ -116,7 +115,7 @@ def dispersion_final_cuda(x, c_vr, c_dvr, r_par, A, s_perp, iaH, resc_vel):
     if err != 0:
         raise RuntimeError(f'dispersion_final kernel launch failed: CUDA error '
                            f'{err}')
-    LAUNCHES += 1
+    count('dispersion.launches', 1, r_par.device)
     return outs
 
 

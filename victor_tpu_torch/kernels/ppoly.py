@@ -39,17 +39,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-
-#: number of kernel launches since the count was last reset
-LAUNCHES = 0
-#: of those, launches with more than one channel
-LAUNCHES_MULTI = 0
-#: launches of the backward kernel (one per backward call)
-LAUNCHES_BWD = 0
-#: launches made for second derivatives: the fused kernel's (its chunk
-#: kernel and, with d/dcoeffs, its reduce), and the forward and backward
-#: launches of the composed path
-LAUNCHES_2ND = 0
+from ..utils.profiling import count, count_bytes
 
 MAX_KNOTS = 1024          # with K = 1: 40,936 bytes of table in f64, < 48 KB
 MAX_CHANNELS = 4          # instantiated in csrc/ppoly_eval.cu
@@ -258,8 +248,10 @@ def check_args(x, coeffs, q) -> int:
 
 def ppoly_eval_cuda(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
                     clamp: bool = True) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream (no synchronisation)."""
-    global LAUNCHES, LAUNCHES_MULTI
+    """Launch the CUDA kernel on the current stream (no synchronisation).
+    Counts `ppoly.launches` (and `ppoly.launches_multi` with more than one
+    channel) on q's device, and `ppoly.bytes` while a profiler runs
+    (`utils.profiling`)."""
     K = check_args(x, coeffs, q)
     dev = q.device
     if not (dev.type == 'cuda' and x.device == dev and coeffs.device == dev):
@@ -286,8 +278,10 @@ def ppoly_eval_cuda(x: torch.Tensor, coeffs: torch.Tensor, q: torch.Tensor,
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err != 0:
         raise RuntimeError(f'ppoly_eval kernel launch failed: CUDA error {err}')
-    LAUNCHES += 1
-    LAUNCHES_MULTI += K > 1
+    count('ppoly.launches', 1, index)
+    if K > 1:
+        count('ppoly.launches_multi', 1, index)
+    count_bytes('ppoly.bytes', index, x, coeffs, q, out)
     return out
 
 
@@ -342,8 +336,9 @@ def ppoly_eval_backward_cuda(x, coeffs, q, grad_out, clamp: bool = True,
     """Launch the backward kernel on the current stream (no
     synchronisation): (dq (B, M) or None, dcoeffs (coeffs' shape) or None).
     The coefficient sums run in a fixed order (csrc/ppoly_eval.cu), so the
-    same inputs give the same bits on every call."""
-    global LAUNCHES_BWD
+    same inputs give the same bits on every call. Counts
+    `ppoly.bwd_launches` and, while a profiler runs, `ppoly.bytes` on q's
+    device."""
     K = check_grad_args(x, coeffs, q, grad_out)
     dev = q.device
     if not (dev.type == 'cuda' and x.device == dev and coeffs.device == dev
@@ -379,7 +374,8 @@ def ppoly_eval_backward_cuda(x, coeffs, q, grad_out, clamp: bool = True,
     if err != 0:
         raise RuntimeError('ppoly_eval backward kernel launch failed: CUDA '
                            f'error {err}')
-    LAUNCHES_BWD += 1
+    count('ppoly.bwd_launches', 1, index)
+    count_bytes('ppoly.bytes', index, x, coeffs, q, grad_out, dq, dc)
     return dq, dc
 
 
@@ -489,8 +485,8 @@ def ppoly_eval_second_order_cuda(x, coeffs, q, grad_out, u, V,
     synchronisation): `ppoly_eval_second_order_composed`'s terms, bit for
     bit, from one pass over the queries, one launch (two with d/dcoeffs:
     the chunks, then the reduce). Returns (d_coeffs, d_q, d_grad_out), None
-    where not asked for or zero."""
-    global LAUNCHES_2ND
+    where not asked for or zero. Counts `ppoly.second_order_launches` and,
+    while a profiler runs, `ppoly.bytes` on q's device."""
     K = check_second_order_args(x, coeffs, q, grad_out, u, V)
     dev = q.device
     if not (dev.type == 'cuda' and all(
@@ -532,7 +528,9 @@ def ppoly_eval_second_order_cuda(x, coeffs, q, grad_out, u, V,
     if err != 0:
         raise RuntimeError('ppoly_eval second-order kernel launch failed: '
                            f'CUDA error {err}')
-    LAUNCHES_2ND += 1 + want_c
+    count('ppoly.second_order_launches', 1 + want_c, index)
+    count_bytes('ppoly.bytes', index, x, coeffs, q, grad_out, u,
+                V if use_v else None, d_c, d_q, d_g)
     return d_c, d_q, d_g
 
 
@@ -588,14 +586,21 @@ def ppoly_eval_second_order_composed(x, coeffs, q, grad_out, u, V,
     interval n-2. At an infinite query without clamp, where the forward is
     NaN, d/dq and d/dgrad_out are NaN (JAX's 'gather' strategy, whose
     forward is the end polynomial there, gives infinities). The kernel
-    launches the wrappers count (LAUNCHES, LAUNCHES_BWD) during the call
-    also count in LAUNCHES_2ND."""
-    global LAUNCHES_2ND
-    before = LAUNCHES + LAUNCHES_BWD
+    launches that the forward and backward wrappers count during the call
+    (`ppoly.launches`, `ppoly.bwd_launches`) also count in
+    `ppoly.second_order_launches`."""
     g = grad_out
     cuda = q.is_cuda
-    fwd = ppoly_eval_cuda if cuda else ppoly_eval_plain
-    bwd = ppoly_eval_backward_cuda if cuda else ppoly_eval_backward_plain
+    launched = [0]
+
+    def counted(kernel):
+        def call(*args):
+            launched[0] += 1
+            return kernel(*args)
+        return call
+    fwd = counted(ppoly_eval_cuda) if cuda else ppoly_eval_plain
+    bwd = counted(ppoly_eval_backward_cuda) if cuda else \
+        ppoly_eval_backward_plain
     cq = clip_factor(x, q) if clamp else torch.ones_like(q)
     if coeffs.ndim == 4:                      # (B, M) -> (B, 1, M)
         def per_channel(a):
@@ -633,7 +638,8 @@ def ppoly_eval_second_order_composed(x, coeffs, q, grad_out, u, V,
             d_q = torch.where(inf, math.nan, d_q)
         if d_g is not None:
             d_g = torch.where(per_channel(inf), math.nan, d_g)
-    LAUNCHES_2ND += LAUNCHES + LAUNCHES_BWD - before
+    if launched[0]:
+        count('ppoly.second_order_launches', launched[0], q.device)
     return d_c, d_q, d_g
 
 

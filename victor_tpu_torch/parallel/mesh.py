@@ -36,6 +36,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import device_index, span
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Mesh:
@@ -245,12 +247,24 @@ def _join(outs: list, n: int):
     return tuple(torch.cat(o)[:n] for o in zip(*outs))
 
 
+def _chunk_span(device: torch.device) -> str:
+    """The name of the span of each chunk issued to `device`,
+    `likelihood.chunk#<device index>`."""
+    return f'likelihood.chunk#{device_index(device)}'
+
+
 def chunked(run, chunk: Optional[int]):
     """`run(x) -> a tensor or tuple of (N, ...) tensors`, evaluated in
     chunks of `chunk` rows when the batch is larger (`_pieces`); the pad
-    rows are discarded. None evaluates the whole batch at once."""
+    rows are discarded. None evaluates the whole batch at once. Each chunk
+    runs in a `likelihood.chunk#<i>` span (`utils.profiling`)."""
     def fn(x):
-        return _join([run(p) for p in _pieces(x, chunk)], x.shape[0])
+        name = _chunk_span(x.device)
+        outs = []
+        for p in _pieces(x, chunk):
+            with span(name):
+                outs.append(run(p))
+        return _join(outs, x.shape[0])
     return fn
 
 
@@ -268,7 +282,9 @@ def shard_map(fn, tables, mesh: Optional[Mesh], axes=None,
     under `torch.cuda.device` (so the kernels launch on that device's
     current stream), before chunk k + 1 of any, and only then gathers the
     results onto x's device, in order. Without a mesh, `chunked(x ->
-    fn(tables, x), chunk)`.
+    fn(tables, x), chunk)`. Spans (`utils.profiling`): `mesh.scatter`
+    around the slices' copies, `likelihood.chunk#<i>` around each chunk
+    issued to device i, `mesh.gather` around the copies back and the joins.
 
     The tables, the mesh and x must lie on one device type: a copy between
     the host and a card is never made silently."""
@@ -288,21 +304,24 @@ def shard_map(fn, tables, mesh: Optional[Mesh], axes=None,
                              f'the mesh on {kind} devices')
         bounds = np.cumsum([0] + [len(a) for a in np.array_split(
             np.arange(x.shape[0]), len(devices))])
-        slices = [(d, x[a:b].to(d)) for d, a, b in
-                  zip(devices, bounds[:-1], bounds[1:]) if b > a]
+        with span('mesh.scatter'):
+            slices = [(d, x[a:b].to(d)) for d, a, b in
+                      zip(devices, bounds[:-1], bounds[1:]) if b > a]
         pieces = [_pieces(part, chunk) for _, part in slices]
+        names = [_chunk_span(d) for d, _ in slices]
         outs = [[] for _ in slices]
         for k in range(max(len(p) for p in pieces)):
-            for (d, _), p, out in zip(slices, pieces, outs):
+            for (d, _), p, out, name in zip(slices, pieces, outs, names):
                 if k < len(p):
-                    with _on(d):
+                    with _on(d), span(name):
                         out.append(fn(replicas[d], p[k]))
-        parts = [_join(out, part.shape[0])
-                 for out, (_, part) in zip(outs, slices)]
-        if isinstance(parts[0], torch.Tensor):
-            return torch.cat([p.to(x.device) for p in parts])
-        return tuple(torch.cat([p[j].to(x.device) for p in parts])
-                     for j in range(len(parts[0])))
+        with span('mesh.gather'):
+            parts = [_join(out, part.shape[0])
+                     for out, (_, part) in zip(outs, slices)]
+            if isinstance(parts[0], torch.Tensor):
+                return torch.cat([p.to(x.device) for p in parts])
+            return tuple(torch.cat([p[j].to(x.device) for p in parts])
+                         for j in range(len(parts[0])))
 
     return call
 

@@ -72,9 +72,9 @@ def child(args) -> int:
     import torch.distributed as dist
 
     from ..io.tables import build_tables
-    from ..kernels import ppoly
     from ..likelihood.batched import (make_batched_loglike,
                                       make_sharded_loglike)
+    from ..utils.profiling import total
     from .mesh import (_all_gather, cross_chain_rhat, distributed_init,
                        make_mesh)
 
@@ -99,11 +99,11 @@ def child(args) -> int:
     mine = slice(rank * N_PER_PROCESS, (rank + 1) * N_PER_PROCESS)
     mesh = make_mesh(('walkers',), devices=[device])
     sharded = make_sharded_loglike(bundle, NAMES, mesh, gradient_free=False)
-    ppoly.LAUNCHES = 0
+    before = total('ppoly.launches', device)
     lnl, chi2 = sharded(theta[mine])
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
-    launches = ppoly.LAUNCHES
+    launches = total('ppoly.launches', device) - before
     ref_lnl, ref_chi2 = make_batched_loglike(bundle, NAMES,
                                              gradient_free=False)(theta)
     finite = bool(torch.isfinite(ref_lnl).all())

@@ -26,6 +26,13 @@ host: one read from the card per step.
 Matrix-vector products are elementwise products and sums (`_mv`, `_mvt`),
 so no matmul, and no TF32, touches the trajectory or the kinetic energy:
 the counterpart of victor_tpu's `matmul_highest`.
+
+Spans (`utils.profiling`): `hmc.step` around each step of
+`staged_segment` (HMC's, and MH's and NUTS's, which share it), holding
+`hmc.adapt` (the warm-up resets; HMC's acceptance, dual averaging and
+Welford) and one `hmc.leapfrog` per position update;
+`likelihood.backward` around the `autograd.grad` of `value_and_grad`.
+Counter: `hmc.leapfrogs`, the position updates of the batch.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+
+from ..utils.profiling import count, span
 
 
 class HMCState(NamedTuple):
@@ -148,14 +157,17 @@ def staged_segment(step_fn: Callable, state: HMCState, i0: int, length: int,
     w2 = n_warmup // 3
     recs = []
     for i in range(i0, i0 + length):
-        if i == w1:
-            state = _diag_reset(state)
-        if i == w1 + w2:
-            state = _dense_reset(state)
-        if i == n_warmup:
-            state = _freeze(state)
-        state = step_fn(state, i < n_warmup, mu_offset)
-        recs.append((state.q, state.lnp, state.aux))
+        with span('hmc.step'):
+            if i in (w1, w1 + w2, n_warmup):
+                with span('hmc.adapt'):
+                    if i == w1:
+                        state = _diag_reset(state)
+                    if i == w1 + w2:
+                        state = _dense_reset(state)
+                    if i == n_warmup:
+                        state = _freeze(state)
+            state = step_fn(state, i < n_warmup, mu_offset)
+            recs.append((state.q, state.lnp, state.aux))
     return state, tuple(torch.stack(r, dim=1) for r in zip(*recs))
 
 
@@ -188,7 +200,8 @@ def value_and_grad(logpost_y: Callable) -> Callable:
         with torch.enable_grad():
             y = y.detach().requires_grad_()
             lnp, aux = logpost_y(y)
-            (grad,) = torch.autograd.grad(lnp.sum(), y)
+            with span('likelihood.backward'):
+                (grad,) = torch.autograd.grad(lnp.sum(), y)
         return lnp.detach(), aux.detach().reshape(y.shape[0], -1), grad
     return vg
 
@@ -203,17 +216,20 @@ def _leapfrog(value_grad: Callable, q, p, grad, lnp, aux, eps, L,
         [n_steps.min(), n_steps.max()]).tolist())
     half = (0.5 * eps)[:, None]
     for i in range(hi):
-        p1 = p + half * grad
-        q1 = q + eps[:, None] * _mv(L, _mvt(L, p1))
-        lnp1, aux1, grad1 = value_grad(q1)
-        p1 = p1 + half * grad1
-        if i < lo:
-            q, p, grad, lnp, aux = q1, p1, grad1, lnp1, aux1
-            continue
-        live = i < n_steps
-        q, p, grad, aux = (torch.where(live[:, None], new, old) for new, old
-                           in ((q1, q), (p1, p), (grad1, grad), (aux1, aux)))
-        lnp = torch.where(live, lnp1, lnp)
+        with span('hmc.leapfrog'):
+            p1 = p + half * grad
+            q1 = q + eps[:, None] * _mv(L, _mvt(L, p1))
+            lnp1, aux1, grad1 = value_grad(q1)
+            p1 = p1 + half * grad1
+            if i < lo:
+                q, p, grad, lnp, aux = q1, p1, grad1, lnp1, aux1
+                continue
+            live = i < n_steps
+            q, p, grad, aux = (torch.where(live[:, None], new, old)
+                               for new, old in ((q1, q), (p1, p),
+                                                (grad1, grad), (aux1, aux)))
+            lnp = torch.where(live, lnp1, lnp)
+    count('hmc.leapfrogs', hi, q.device)
     return q, p, grad, lnp, aux
 
 
@@ -232,17 +248,19 @@ def _hmc_step(value_grad: Callable, state: HMCState, jitter: torch.Tensor,
     q1, p1, grad1, lnp1, aux1 = _leapfrog(value_grad, state.q, p0, state.grad,
                                           state.lnp, state.aux, eps, L,
                                           n_steps)
-    log_accept = (lnp1 - _kinetic(L, p1)) - (state.lnp - ke0)
-    log_accept = torch.where(torch.isnan(log_accept), -math.inf, log_accept)
-    accept_prob = torch.clamp(torch.exp(log_accept), max=1.0)
-    accept = torch.log(u) < log_accept
+    with span('hmc.adapt'):
+        log_accept = (lnp1 - _kinetic(L, p1)) - (state.lnp - ke0)
+        log_accept = torch.where(torch.isnan(log_accept), -math.inf,
+                                 log_accept)
+        accept_prob = torch.clamp(torch.exp(log_accept), max=1.0)
+        accept = torch.log(u) < log_accept
 
-    q = torch.where(accept[:, None], q1, state.q)
-    lnp = torch.where(accept, lnp1, state.lnp)
-    grad = torch.where(accept[:, None], grad1, state.grad)
-    aux = torch.where(accept[:, None], aux1, state.aux)
-    return _adapt_and_pack(state, q, lnp, grad, aux, accept_prob, accept,
-                           adapt, target_accept, mu_offset=mu_offset)
+        q = torch.where(accept[:, None], q1, state.q)
+        lnp = torch.where(accept, lnp1, state.lnp)
+        grad = torch.where(accept[:, None], grad1, state.grad)
+        aux = torch.where(accept[:, None], aux1, state.aux)
+        return _adapt_and_pack(state, q, lnp, grad, aux, accept_prob, accept,
+                               adapt, target_accept, mu_offset=mu_offset)
 
 
 def draw_noise(state: HMCState, n_leapfrog: int):

@@ -29,6 +29,9 @@ uniforms (the tests replay victor_tpu's key splits through it).
 per doubling that any chain performs a fixed block (direction and merge
 (C,), 2^depth leaf uniforms), so the draws are a function of the state and
 segments and resumes are bit-identical.
+
+Each leapfrog step of the batch counts one `hmc.leapfrogs`
+(`utils.profiling`), as HMC's position updates do.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import Callable, Tuple
 import torch
 
 from ..errors import InputError
+from ..utils.profiling import count
 from .hmc import (HMCState, _adapt_and_pack, _kinetic, _mv, _mvt,
                   init_chains, staged_segment, value_and_grad)
 
@@ -66,6 +70,7 @@ def _leapfrog(value_grad: Callable, q, p, grad, eps, L):
     q = q + eps[:, None] * _mv(L, _mvt(L, p))
     lnp, aux, grad = value_grad(q)
     p = p + half * grad
+    count('hmc.leapfrogs', 1, q.device)
     return q, p, grad, lnp, aux, _mv(L, _mvt(L, p)), _kinetic(L, p)
 
 

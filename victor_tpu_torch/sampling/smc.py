@@ -27,6 +27,11 @@ tests feed it victor_tpu's own key splits); `run_smc` draws the noise from a
 `torch.Generator` on the device (`draw_stage_noise`), whose state the
 checkpoint stores. Only the (N,) log-likelihood vector and the acceptance
 return to the host each stage, for the d-beta bisection.
+
+Spans (`utils.profiling`): `smc.init` around a fresh run's first
+evaluation; `smc.stage` around each stage, holding `smc.temper` (the lnL
+read, the bisection, the weights and log Z), `smc.resample` (the weighted
+Cholesky and the resample), one `smc.move` per move and `smc.checkpoint`.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ import torch
 from ..errors import InputError
 from ..io.tables import _target_device
 from ..utils.logging import get_logger
+from ..utils.profiling import span
 from .priors import ParamSpace
 
 log = get_logger('smc')
@@ -132,22 +138,24 @@ def _stage(lnlike, lnprior, y, lnl, lnpri, aux, w, beta_new, noise):
 
     u_res, eps, u_acc = noise
     n = y.shape[0]
-    # proposal from the PRE-resampling weighted covariance
-    chol = guarded_cholesky(w, y)
-    idx = _systematic_resample(u_res, w, n)
-    y, lnl, lnpri, aux = y[idx], lnl[idx], lnpri[idx], aux[idx]
+    with span('smc.resample'):
+        # proposal from the PRE-resampling weighted covariance
+        chol = guarded_cholesky(w, y)
+        idx = _systematic_resample(u_res, w, n)
+        y, lnl, lnpri, aux = y[idx], lnl[idx], lnpri[idx], aux[idx]
     n_acc = torch.zeros((), dtype=y.dtype, device=y.device)
     for k in range(eps.shape[0]):
-        y_p = y + eps[k] @ chol.T
-        lnl_p, aux_p = lnlike(y_p)
-        lnpri_p = lnprior(y_p)
-        ln_acc = (beta_new * lnl_p + lnpri_p) - (beta_new * lnl + lnpri)
-        accept = torch.log(u_acc[k]) < ln_acc
-        y = torch.where(accept[:, None], y_p, y)
-        lnl = torch.where(accept, lnl_p, lnl)
-        lnpri = torch.where(accept, lnpri_p, lnpri)
-        aux = torch.where(accept[:, None], aux_p, aux)
-        n_acc = n_acc + accept.to(y.dtype).mean()
+        with span('smc.move'):
+            y_p = y + eps[k] @ chol.T
+            lnl_p, aux_p = lnlike(y_p)
+            lnpri_p = lnprior(y_p)
+            ln_acc = (beta_new * lnl_p + lnpri_p) - (beta_new * lnl + lnpri)
+            accept = torch.log(u_acc[k]) < ln_acc
+            y = torch.where(accept[:, None], y_p, y)
+            lnl = torch.where(accept, lnl_p, lnl)
+            lnpri = torch.where(accept, lnpri_p, lnpri)
+            aux = torch.where(accept[:, None], aux_p, aux)
+            n_acc = n_acc + accept.to(y.dtype).mean()
     return y, lnl, lnpri, aux, n_acc / eps.shape[0]
 
 
@@ -234,8 +242,9 @@ def run_smc(bundle, params_block: Dict, n_particles: int = 2048,
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         y = space.to_unbounded(space.sample_prior(gen, n_particles))
-        lnl, aux = lnlike(y)
-        lnpri = lnprior(y)
+        with span('smc.init'):
+            lnl, aux = lnlike(y)
+            lnpri = lnprior(y)
         beta = 0.0
         logz = 0.0
         var_sum = 0.0
@@ -266,31 +275,34 @@ def run_smc(bundle, params_block: Dict, n_particles: int = 2048,
     if beta >= 1.0 and state is not None:
         max_stages = 0       # resumed a finished run: fall through to result
     for _ in range(max_stages):
-        lnl_h = lnl.detach().cpu().numpy().astype(np.float64)
-        finite = np.isfinite(lnl_h)
-        lnl_h = np.where(finite, lnl_h, -1e30)   # prior draws with L=0
-        dbeta = _choose_dbeta(lnl_h, beta, ess_target)
-        beta_new = min(beta + dbeta, 1.0)
+        with span('smc.stage'):
+            with span('smc.temper'):
+                lnl_h = lnl.detach().cpu().numpy().astype(np.float64)
+                finite = np.isfinite(lnl_h)
+                lnl_h = np.where(finite, lnl_h, -1e30)  # prior draws, L=0
+                dbeta = _choose_dbeta(lnl_h, beta, ess_target)
+                beta_new = min(beta + dbeta, 1.0)
 
-        lnw = dbeta * lnl_h
-        m = lnw.max()
-        w = np.exp(lnw - m)
-        logz += m + np.log(w.mean())
-        w_norm = w / w.sum()
-        ess = 1.0 / (n_particles * float((w_norm ** 2).sum()))
-        var_sum += max(1.0 / ess - 1.0, 0.0) / n_particles
-        ess_hist.append(ess)
+                lnw = dbeta * lnl_h
+                m = lnw.max()
+                w = np.exp(lnw - m)
+                logz += m + np.log(w.mean())
+                w_norm = w / w.sum()
+                ess = 1.0 / (n_particles * float((w_norm ** 2).sum()))
+                var_sum += max(1.0 / ess - 1.0, 0.0) / n_particles
+                ess_hist.append(ess)
 
-        noise = draw_stage_noise(gen, n_particles, space.ndim, n_moves,
-                                 y.dtype)
-        y, lnl, lnpri, aux, acc = _stage(
-            lnlike, lnprior, y, lnl, lnpri, aux,
-            torch.as_tensor(w_norm, dtype=y.dtype, device=device), beta_new,
-            noise)
-        acc_hist.append(float(acc))
-        betas.append(beta_new)
-        beta = beta_new
-        _save_checkpoint()
+            noise = draw_stage_noise(gen, n_particles, space.ndim, n_moves,
+                                     y.dtype)
+            y, lnl, lnpri, aux, acc = _stage(
+                lnlike, lnprior, y, lnl, lnpri, aux,
+                torch.as_tensor(w_norm, dtype=y.dtype, device=device),
+                beta_new, noise)
+            acc_hist.append(float(acc))
+            betas.append(beta_new)
+            beta = beta_new
+            with span('smc.checkpoint'):
+                _save_checkpoint()
         log.info('SMC stage %d: beta=%.4f ESS/N=%.2f acc=%.2f logZ=%.3f',
                  len(betas) - 1, beta, ess, float(acc), logz)
         if beta >= 1.0:
