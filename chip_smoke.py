@@ -8,7 +8,7 @@ result line is printed):
 
 1. print torch/CUDA versions and the card's name and power limit; require a
    CUDA device; pin TF32 off;
-2. build both CUDA kernels from victor_tpu_torch/kernels/csrc with nvcc, one
+2. build the CUDA kernels from victor_tpu_torch/kernels/csrc with nvcc, one
    nvcc process per source, started together;
 3. hold the ppoly_eval kernel against its plain PyTorch version at the main
    path's shapes, in f64 and f32, with clamp on and off, on queries that mix
@@ -83,7 +83,9 @@ result line is printed):
       ops that torch itself flags as non-deterministic on the path, listed;
    c. d lnL / d theta of GRAD_CASES at GOLDEN and DISPLACED against
       victor_tpu's jax.grad (GRAD_GOLDENS) within 1e-8, and 3 backward
-      launches per gradient on the streaming path;
+      launches per gradient on the streaming path; the dispersion cases
+      launch the Clenshaw kernel and its transpose, and no case sends a
+      CUDA tensor to the plain Clenshaw recurrence;
    d. `run --sampler hmc` through the CLI with its defaults on QUAD_BLOCK,
       rhat_stop 0.01, at most HMC_DRAWS draws: R-1 < 0.01, moments within
       0.2 sigma and 15% of the quadrature; leapfrogs/s;
@@ -104,8 +106,9 @@ result line is printed):
       same bits; the Hessian's lookups timed in f64, fused and composed in
       turns, L2 warm and cold;
    b. -Hessians of lnL of GRAD_CASES at GOLDEN and DISPLACED against
-      victor_tpu's jax.hessian (HESS_GOLDENS) within 1e-8 of max|H|; one
-      Hessian's wall and device time, second-order launches and peak memory;
+      victor_tpu's jax.hessian (HESS_GOLDENS) within 1e-8 of max|H|, with
+      the Clenshaw counters checked as in 12c; one Hessian's wall and
+      device time, second-order launches and peak memory;
    c. `python -m victor_tpu_torch fit configs/boss_sampling_config.yaml`
       with its defaults in a subprocess (the .npz --set lines,
       --covmat-out), started beside phase 12d: best fit, chi2 and Laplace
@@ -301,6 +304,23 @@ result line is printed):
       posterior in EH and in grid mode) in a subprocess: it must exit 0
       with its PASS line; its seconds, evaluations per second and kernel
       launches are printed.
+20. the fast streaming mode's Clenshaw kernel (kernels/chebyshev.py) on
+   configs/boss_config.yaml, f64, the SMC path's fast modes (SMC_FAST):
+   the path's own call for a chunk of 64 (two series of (64, 49)
+   coefficients, q = rr (64, 50 x 3000)) captured, and the kernel against the plain recurrence
+   bit for bit (NaN positions identical, every other entry's bits equal)
+   in f64 and f32 on it and on a copy with the domains' end points, NaN,
+   infinities and far queries planted; timed in turns against the plain
+   recurrence, with its byte bound and its f64-operation bound printed and
+   >= 60% of the latter required; one launch per chunk and no plain CUDA
+   call on the path; one SMC stage at the boss_smc cell's sizes
+   (SMC_STAGE, SMC_STAGE_SEED) with the kernel and with the plain
+   recurrence: one launch per chunk, and the same checkpoint bit for bit
+   (particles, log-likelihoods, log Z, generator); the gradient through
+   the kernels at K = 25 against the plain recurrence's autograd within
+   1e-10, its launches, both timed on the wall clock; `--chebyshev` runs
+   phases 2 and 20 alone, and 12c and 13b's dispersion cases (the
+   gradient and the Hessian through the Clenshaw kernels).
 
 Before them the script prints its own wall time. The last two lines are a
 JSON summary of the kernels (device-only `ms`, `host_us`; the sampler
@@ -351,7 +371,7 @@ GOLDEN_CHI2, GOLDEN_LNL = 65.01, 284.76
 CHUNK = 64
 N_POINTS = 150_000            # n_v * n_mu * n_s at BOSS size
 TOL = {'float64': 1e-12, 'float32': 1e-5}
-KERNELS = ('ppoly_eval', 'dispersion_final')
+KERNELS = ('ppoly_eval', 'dispersion_final', 'chebyshev_eval')
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 L2_BYTES = 50e6               # H100 SXM L2 cache
 SLEEP_CYCLES = 40_000_000     # ~20 ms of device sleep ahead of timed calls
@@ -900,6 +920,12 @@ API_GOLDENS = {
 SCALE_N = 256
 SCALE_MH = (8, 30, 30)
 SCALE_SMC = (256, 2)
+# Phase 20: the gradient-free fast modes of the SMC path (benchmark cell
+# boss_smc), one stage of run_smc at that cell's sizes, and its seed
+SMC_FAST = {'streaming_eval': 'fast', 'beta_covariance': 'factored',
+            'dispersion_final': 'fast'}
+SMC_STAGE = (2048, 5)
+SMC_STAGE_SEED = 2_718_281_828
 SCALE_TIMED_N = 4096
 SCALE_TOL = 1e-12             # sharded against batched, relative
 SCALE_RUN_TOL = 5e-6          # a mesh run against its unsharded run
@@ -2473,27 +2499,47 @@ def backward_phase(bundle, gen):
     return results
 
 
-def grad_checks(bundle):
-    """Phase 12c: d lnL / d theta of each of GRAD_CASES on the card (the
-    kernels forward and backward, AD-resolved modes) at GOLDEN and
-    DISPLACED against victor_tpu's jax.grad (GRAD_GOLDENS) within 1e-8
+#: the Clenshaw kernel's launches, its transpose's, and CUDA calls of the
+#: plain recurrence (none on the card's paths)
+CHEBYSHEV_COUNTERS = ('chebyshev.launches', 'chebyshev.transpose_launches',
+                      'chebyshev.plain_cuda')
+
+
+def clenshaw_on_card(label, uses_it):
+    """Check, since `kernel_launches.zero(*CHEBYSHEV_COUNTERS)`, that no CUDA
+    tensor reached the plain Clenshaw recurrence, and where the path uses
+    the Chebyshev compressions (the dispersion model's interior steps and
+    'fast' final stage) that the kernel and its transpose launched."""
+    fwd, bwd, plain = kernel_launches(*CHEBYSHEV_COUNTERS)
+    check(plain == 0 and (not uses_it or (fwd > 0 and bwd > 0)),
+          f'{label}: Clenshaw kernel launches {fwd}, transpose launches '
+          f'{bwd}{" (both > 0)" if uses_it else ""}, plain recurrence on '
+          f'the card {plain} (0)')
+
+
+def grad_checks(bundle, cases=GRAD_CASES):
+    """Phase 12c: d lnL / d theta of each of `cases` (GRAD_CASES) on the
+    card (the kernels forward and backward, AD-resolved modes) at GOLDEN
+    and DISPLACED against victor_tpu's jax.grad (GRAD_GOLDENS) within 1e-8
     relative, and the backward kernel's launches per gradient on the
-    streaming path. Returns those launches."""
+    streaming path. Returns those launches (None without that case)."""
     import numpy as np
     import torch
     from victor_tpu_torch.sampling.targets import resolve_target
 
     per_call = None
-    for name, kw in GRAD_CASES.items():
+    for name, kw in cases.items():
         tables, loglike = resolve_target(bundle, kw or None, None,
                                          gradient_free=False)
         th = torch.tensor([GOLDEN, DISPLACED], dtype=torch.float64,
                           device='cuda', requires_grad=True)
-        kernel_launches.zero('ppoly.bwd_launches')
+        kernel_launches.zero('ppoly.bwd_launches', *CHEBYSHEV_COUNTERS)
         lnl, _ = loglike(tables, {k: th[:, i] for i, k in enumerate(NAMES)})
         (grad,) = torch.autograd.grad(lnl.sum(), th)
         torch.cuda.synchronize()
         launches = kernel_launches('ppoly.bwd_launches')
+        clenshaw_on_card(f'd lnL / d theta ({name})',
+                         kw.get('rsd_model') == 'dispersion')
         want = np.array(GRAD_GOLDENS[name])
         got = grad.cpu().numpy()
         # relative to each entry, or to 1e-6 of the largest where an entry
@@ -2506,8 +2552,9 @@ def grad_checks(bundle):
                            f'launches {launches}')
         if name == 'streaming':
             per_call = launches
-    check(per_call >= 3, f'backward kernel launches per gradient on the '
-                         f'streaming path: {per_call} (>= 3)')
+    if per_call is not None:
+        check(per_call >= 3, f'backward kernel launches per gradient on the '
+                             f'streaming path: {per_call} (>= 3)')
     return per_call
 
 
@@ -3016,22 +3063,27 @@ def neg_loglike_hessian(bundle, kw, points):
     return value_grad_hessian(neg, th)[2]
 
 
-def hessian_checks(bundle, card):
-    """Phase 13b: -Hessians of lnL of GRAD_CASES at GOLDEN and DISPLACED
-    against victor_tpu's jax.hessian (HESS_GOLDENS) within 1e-8 of max|H|;
-    then one Hessian of the streaming case timed (wall, and device time
-    under torch.profiler), its second-order launches and its peak device
-    memory."""
+def hessian_checks(bundle, card, cases=GRAD_CASES):
+    """Phase 13b: -Hessians of lnL of each of `cases` (GRAD_CASES) at
+    GOLDEN and DISPLACED against victor_tpu's jax.hessian (HESS_GOLDENS)
+    within 1e-8 of max|H|; then, with the streaming case among them, one
+    Hessian of it timed (wall, and device time under torch.profiler), its
+    second-order launches and its peak device memory."""
     import numpy as np
 
-    for name, kw in GRAD_CASES.items():
+    for name, kw in cases.items():
+        kernel_launches.zero(*CHEBYSHEV_COUNTERS)
         H = neg_loglike_hessian(bundle, kw, [GOLDEN, DISPLACED]).cpu().numpy()
+        clenshaw_on_card(f'-Hessian of lnL ({name})',
+                         kw.get('rsd_model') == 'dispersion')
         want = np.array(HESS_GOLDENS[name])
         err = max(float(np.abs(h - w).max() / np.abs(w).max())
                   for h, w in zip(H, want))
         check(np.isfinite(H).all() and err <= 1e-8,
               f'-Hessian of lnL ({name}) at the golden and displaced points: '
               f'max error {err:.3e} of max|H| against jax.hessian (<= 1e-8)')
+    if 'streaming' not in cases:
+        return
     t = hessian_timing(bundle)
     check(t['launches'] > 0, f'second-order kernel launches per Hessian '
                              f'(streaming, one point): {t["launches"]}')
@@ -5238,6 +5290,253 @@ def camb_grid_validate(card):
           '19b: the SMC runs launched the ppoly_eval kernel')
 
 
+# ---------------------------------------------------------------------------
+# 20. the Clenshaw kernel of the fast streaming mode
+# ---------------------------------------------------------------------------
+
+def chebyshev_ops(S, K):
+    """f64 instructions per query of the Clenshaw kernel, a product,
+    difference, sum or division counted as one (the division takes several:
+    undercounted): 2q once, and per series the offset, the division, 2u,
+    three per step of the K - 1 and three for the last term."""
+    return 1 + S * (3 + 3 * (K - 1) + 3)
+
+
+def capture_clenshaw(bundle, theta):
+    """The fast streaming mode's own Clenshaw call for one chunk of
+    parameter points: its two series ((coef (B, 49), a (B,), b (B,)) each)
+    and q = rr (B, 50 x 3000), copied as `models.ccf_theory` passes them."""
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+    from victor_tpu_torch.models import ccf_theory
+    seen = []
+    orig = ccf_theory.chebyshev_eval_multi
+
+    def capture(series, q):
+        seen.append(([tuple(t.clone() for t in s) for s in series],
+                     q.clone()))
+        return orig(series, q)
+
+    ccf_theory.chebyshev_eval_multi = capture
+    try:
+        make_batched_loglike(bundle, NAMES, opts_kw=SMC_FAST,
+                             chunk=CHUNK)(theta)
+    finally:
+        ccf_theory.chebyshev_eval_multi = orig
+    series, q = seen[0]
+    return series, q.reshape(q.shape[0], -1)
+
+
+def plain_series(series, q):
+    """`chebyshev_eval_cuda`'s signature on the plain recurrence."""
+    from victor_tpu_torch.kernels import chebyshev
+    return tuple(chebyshev.chebyshev_eval_plain(*s, q) for s in series)
+
+
+def same_bits(label, got, want):
+    """Check NaN positions identical and every other entry's bits equal (the
+    sign of a zero included; NaN payloads are not compared)."""
+    import torch
+    nan = torch.isnan(want)
+    ints = torch.int64 if want.dtype == torch.float64 else torch.int32
+    diff = int((got.view(ints) != want.view(ints))[~nan].sum())
+    check(torch.equal(torch.isnan(got), nan) and diff == 0,
+          f'{label}: kernel equals plain bit for bit ({int(nan.sum())} NaN, '
+          f'{want.numel() - int(nan.sum())} other entries, {diff} differ)')
+
+
+def smc_stage_state(bundle, params, tmp, name):
+    """One fresh stage of `run_smc` at the SMC cell's sizes (2048 particles,
+    5 moves, chunk 64, fast modes, seed SMC_STAGE_SEED): its checkpoint's
+    arrays, the Clenshaw launches and plain CUDA calls it counted, and its
+    wall seconds."""
+    import numpy as np
+    import torch
+    from victor_tpu_torch.sampling.smc import run_smc
+    path = os.path.join(tmp, f'{name}.npz')
+    kernel_launches.zero('chebyshev.launches', 'chebyshev.plain_cuda')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        run_smc(bundle, params, n_particles=SMC_STAGE[0],
+                n_moves=SMC_STAGE[1], seed=SMC_STAGE_SEED, opts_kw=SMC_FAST,
+                chunk=CHUNK, max_stages=1, checkpoint=path, device='cuda')
+    except RuntimeError as e:
+        if 'did not reach beta=1' not in str(e):
+            raise
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    with np.load(path) as z:
+        state = {k: z[k] for k in z.files}
+    return state, kernel_launches('chebyshev.launches',
+                                  'chebyshev.plain_cuda'), seconds
+
+
+def chebyshev_phase(bundle, card):
+    """Phase 20: the Clenshaw kernel on the fast streaming mode's own inputs
+    at (64, 50 x 3000) f64 against the plain recurrence, bit for bit, and
+    timed against both of its bounds; its launches on the path; one SMC
+    stage with the kernel and with the plain recurrence, the same
+    checkpoint bit for bit; the gradient through the kernels. Returns the
+    kernels line's rows (the evaluation's)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from victor_tpu_torch.kernels import chebyshev
+    f64 = torch.float64
+    print('Clenshaw kernel (20): the fast streaming mode at (64, 50 x 3000)',
+          flush=True)
+    series, q = capture_clenshaw(bundle, draw_theta(CHUNK, 20, 'cuda'))
+    S, (B, K) = len(series), series[0][0].shape
+    check((S, B, K) == (2, CHUNK, 49) and q.shape == (CHUNK, N_POINTS),
+          f'captured the path\'s call: {S} series of coef {(B, K)}, q '
+          f'{tuple(q.shape)}')
+    planted = q.clone()
+    ends = [t for i in (1, 2) for t in (s[i] for s in series)]
+    planted[:, :2 * S] = torch.stack(ends, 1)
+    planted[:, 2 * S:2 * S + 5] = torch.tensor(
+        [float('nan'), float('inf'), float('-inf'), -1e6, 1e6], dtype=f64)
+    planted[:, 2 * S + 5:] *= 1.2        # ~1/6 of rr beyond the domain
+    for dtype in (f64, torch.float32):
+        cast = [tuple(t.to(dtype) for t in s) for s in series]
+        for label, qq in (("the path's rr", q),
+                          ('rr with end points, NaN, inf and far queries '
+                           'planted, the rest x 1.2', planted)):
+            qq = qq.to(dtype)
+            for s, (got, want) in enumerate(zip(
+                    chebyshev.chebyshev_eval_cuda(cast, qq),
+                    plain_series(cast, qq))):
+                same_bits(f'{str(dtype)[6:]}, series {s}, {label}', got,
+                          want)
+    out = chebyshev.chebyshev_eval_cuda(series, q)
+    n_bytes = nbytes(*[t for s in series for t in s], q, *out)
+    instr = chebyshev_ops(S, K) * q.numel()
+    result = timed(f'Clenshaw (64, {N_POINTS}) f64, S = 2, K = 49', 0.0,
+                   lambda: chebyshev.chebyshev_eval_cuda(series, q),
+                   lambda: plain_series(series, q),
+                   n_bytes, 2 * instr, reps=(50, 2))
+    bytes_ms = 1e3 * n_bytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * instr / FP64_FLOPS
+    print(f'  ({card}) bounds: bytes {n_bytes / 1e6:.1f} MB -> '
+          f'{bytes_ms:.4f} ms ({100 * bytes_ms / result["ms"]:.1f}%); f64 '
+          f'instructions {instr / 1e9:.3f} G at {FP64_FLOPS / 2e12:.0f} T/s '
+          f'-> {ops_ms:.4f} ms ({100 * ops_ms / result["ms"]:.1f}% of the '
+          f'operation bound); plain {result["plain_ms"]:.3f} ms '
+          f'({result["plain_ms"] / result["ms"]:.1f}x); '
+          f'{1e3 * result["ms"] / CHUNK:.3f} us per evaluation', flush=True)
+    check(ops_ms / result['ms'] >= 0.6,
+          f'the kernel reaches >= 60% of its operation bound: '
+          f'{100 * ops_ms / result["ms"]:.1f}%')
+    clenshaw_gradient(series, q)
+
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+    loglike = make_batched_loglike(bundle, NAMES, opts_kw=SMC_FAST,
+                                   chunk=CHUNK)
+    theta = draw_theta(4 * CHUNK, 21, 'cuda')
+    kernel_launches.zero('chebyshev.launches', 'chebyshev.plain_cuda')
+    loglike(theta)
+    torch.cuda.synchronize()
+    got = kernel_launches('chebyshev.launches', 'chebyshev.plain_cuda')
+    check(got == (4, 0), f'4 chunks of the fast streaming path: {got[0]} '
+          f'kernel launches (4), {got[1]} plain CUDA calls (0)')
+
+    params = load_config('boss_sampling_config.yaml')['params']
+    real = chebyshev.chebyshev_eval_cuda
+    with tempfile.TemporaryDirectory() as tmp:
+        k_state, k_counts, k_s = smc_stage_state(bundle, params, tmp, 'kernel')
+        chebyshev.chebyshev_eval_cuda = plain_series
+        try:
+            p_state, p_counts, p_s = smc_stage_state(bundle, params, tmp,
+                                                     'plain')
+        finally:
+            chebyshev.chebyshev_eval_cuda = real
+    n, moves = SMC_STAGE
+    chunks = (1 + moves) * (n // CHUNK)
+    check(k_counts == (chunks, 0) and p_counts == (0, 2 * chunks),
+          f'one SMC stage ({n} particles x {moves} moves, chunk {CHUNK}): '
+          f'{k_counts[0]} kernel launches ({chunks}, one per chunk), '
+          f'{k_counts[1]} plain CUDA calls (0); with the plain recurrence '
+          f'{p_counts[0]} launches and {p_counts[1]} plain CUDA calls '
+          f'({2 * chunks}, two series per chunk)')
+    differ = [k for k in p_state if k not in k_state or
+              np.asarray(k_state[k]).dtype != np.asarray(p_state[k]).dtype or
+              np.asarray(k_state[k]).tobytes() !=
+              np.asarray(p_state[k]).tobytes()]
+    check(not differ and set(k_state) == set(p_state),
+          f'the stage\'s checkpoint with the kernel equals the plain '
+          f'recurrence\'s bit for bit: {sorted(k_state)} (differ: {differ}); '
+          f'logZ {float(k_state["logz"]):.6f}')
+    evals = n * (1 + moves)
+    print(f'  one SMC stage ({card}): kernel {k_s:.2f} s '
+          f'({evals / k_s:,.1f} evals/s), plain recurrence {p_s:.2f} s '
+          f'({evals / p_s:,.1f} evals/s)', flush=True)
+    return [kernel_row('chebyshev_eval (Clenshaw, fast streaming mode, S = 2, '
+                       'K = 49; launches: one SMC stage)', 'chebyshev_eval.cu',
+                       'victor_tpu/ops/splines.py:494 (an XLA fusion; no TPU '
+                       'kernel)', k_counts[0], result, f64)]
+
+
+def clenshaw_gradient(series, q):
+    """The gradient through ChebyshevEval (the evaluation kernel on the
+    series and on its derivative's, the transpose kernel for the
+    coefficients) against the plain recurrence's autograd, at the
+    dispersion interior's degree (K = 25) over the fast path's rr, f64:
+    d/dq, d/dcoef, d/da, d/db of <out, g> within 1e-10 of each one's
+    largest entry, its launches, and both timed in turns (forward and
+    backward, wall clock)."""
+    import torch
+    from victor_tpu_torch.kernels import chebyshev
+    f64, K = torch.float64, 25
+    gen = torch.Generator(device='cuda').manual_seed(25)
+    coef, a, b = series[0]
+    leaves = [t.clone().requires_grad_()
+              for t in (q, coef[:, :K].contiguous(), a, b)]
+    g = torch.randn(q.shape, generator=gen, device='cuda', dtype=f64)
+
+    def through_kernels():
+        (out,) = chebyshev.ChebyshevEval.apply(*leaves)
+        return torch.autograd.grad(out, leaves, g)
+
+    def plain():
+        qq, c, lo, hi = leaves
+        return torch.autograd.grad(chebyshev.chebyshev_eval_plain(
+            c, lo, hi, qq), leaves, g)
+
+    kernel_launches.zero(*CHEBYSHEV_COUNTERS)
+    got = through_kernels()
+    torch.cuda.synchronize()
+    counts = kernel_launches(*CHEBYSHEV_COUNTERS)
+    want = plain()
+    err = max(float((x - y).abs().max() / y.abs().max())
+              for x, y in zip(got, want))
+    check(err <= 1e-10 and counts == (2, 1, 0),
+          f'gradient through the kernels (64, {N_POINTS}) f64, K = {K}: '
+          f'max error {err:.3e} of each gradient\'s largest entry against '
+          f'the plain autograd (<= 1e-10); launches: evaluation '
+          f'{counts[0]} (2), transpose {counts[1]} (1), plain {counts[2]} (0)')
+    # the plain autograd issues more work than a device sleep covers, so
+    # both sides are timed on the wall clock, synchronised, in turns
+    k1, p1, p2, k2 = (wall_ms(through_kernels, 20), wall_ms(plain, 3),
+                      wall_ms(plain, 3), wall_ms(through_kernels, 20))
+    ms_k, ms_p = (k1 + k2) / 2, (p1 + p2) / 2
+    print(f'  gradient (64, {N_POINTS}) f64, K = {K}, forward and backward, '
+          f'wall (host and device): kernels {ms_k:.4f} ms, plain autograd '
+          f'{ms_p:.4f} ms ({ms_p / ms_k:.1f}x)', flush=True)
+
+
+def wall_ms(fn, reps):
+    """Wall milliseconds per call of fn, synchronised before and after, one
+    warm call first."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
 def kernel_row(name, source, replaces, launches, result, dtype,
                calls=None):
     """One entry of the kernels summary line from a comparison's `timed`
@@ -5301,6 +5600,11 @@ def main() -> int:
                              "ESM's table modes of P(k), with "
                              'validate_camb_grid_torch.py at its defaults) '
                              'alone, printing its kernel rows')
+    parser.add_argument('--chebyshev', action='store_true',
+                        help='build the kernels and run phase 20 (the '
+                             "fast streaming mode's Clenshaw kernel) and "
+                             "12c and 13b's dispersion cases alone, "
+                             'printing its kernel row')
     parser.add_argument('--examples', action='store_true',
                         help='build the kernels and run phase 18 in full '
                              '(the examples, with the ensemble of usage '
@@ -5382,6 +5686,23 @@ def main() -> int:
         print(f'chip_smoke --camb-grid: {time.perf_counter() - t_start:.1f} '
               f's in all ({card})', flush=True)
         print(f'card: {card}', flush=True)
+        print(json.dumps({'kernels': rows}), flush=True)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}), flush=True)
+        return 0
+
+    if args.chebyshev:
+        build_kernels()
+        cfg = load_config()
+        bundle = build_tables(cfg['model'], cfg['data'], device='cuda')
+        rows = chebyshev_phase(bundle, card)
+        dispersion = {k: v for k, v in GRAD_CASES.items()
+                      if v.get('rsd_model') == 'dispersion'}
+        grad_checks(bundle, dispersion)
+        hessian_checks(bundle, card, dispersion)
+        print(f'chip_smoke --chebyshev: {time.perf_counter() - t_start:.1f} '
+              f's in all ({card})', flush=True)
         print(json.dumps({'kernels': rows}), flush=True)
         print(json.dumps({'ok': True, 'device': {
             'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -5621,6 +5942,9 @@ def main() -> int:
     # ---- 19. the ESM's table modes of P(k) ----
     camb_rows = table_modes(card)
 
+    # ---- 20. the fast streaming mode's Clenshaw kernel ----
+    cheb_rows = chebyshev_phase(bundle, card)
+
     f64 = torch.float64
     print(f'chip_smoke: {time.perf_counter() - t_start:.1f} s in all '
           f'({card})', flush=True)
@@ -5664,7 +5988,7 @@ def main() -> int:
                    'dispersion_final.cu',
                    'victor_tpu/ops/dispersion_pallas.py:32', cmp_launches,
                    cmp_result, f64)] + class_rows + [scale_row, quad_row]
-        + example_rows + camb_rows}),
+        + example_rows + camb_rows + cheb_rows}),
           flush=True)
     evidence_dir.cleanup()
     print(json.dumps({'ok': True, 'device': {

@@ -1,6 +1,8 @@
 """The CUDA kernels' wrappers, their build and their plain versions:
 ppoly_eval (one table or K channels over one query set), its backward and
-its second-order terms, and the dispersion model's final stage.
+its second-order terms, the dispersion model's final stage, and the
+Chebyshev series' Clenshaw recurrence (one or two series over one query
+set).
 
 This module imports neither jax nor victor_tpu, so it also runs on a GPU
 machine without them:
@@ -17,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from victor_tpu_torch.kernels import _build, dispersion, ppoly
+from victor_tpu_torch.kernels import _build, chebyshev, dispersion, ppoly
 from victor_tpu_torch.ops import splines as tsp
 from victor_tpu_torch.utils.profiling import total
 
@@ -417,7 +419,8 @@ def test_kernel_wrapper_refuses_on_cpu(case, error, match):
     assert total('ppoly.launches') == before
 
 
-@pytest.mark.parametrize('name', ['ppoly_eval', 'dispersion_final'])
+@pytest.mark.parametrize('name', ['ppoly_eval', 'dispersion_final',
+                                  'chebyshev_eval'])
 def test_build_without_nvcc_raises(monkeypatch, tmp_path, name):
     monkeypatch.setattr(_build.shutil, 'which', lambda name: None)
     monkeypatch.setattr(_build, 'DEFAULT_NVCC', str(tmp_path / 'no-nvcc'))
@@ -481,6 +484,254 @@ def test_dispersion_kernel_wrapper_refuses_cpu_tensors():
     args = [_t(a) for a in _dispersion_inputs(rng, 2, 3, 10)]
     with pytest.raises(ValueError, match='CUDA'):
         dispersion.dispersion_final_cuda(*args)
+
+
+def _chebyshev_inputs(rng, B, S, K, tail):
+    """Clenshaw inputs as numpy arrays: S series (coef (B, K), a (B,),
+    b (B,)), each on its own domain inside [0.01, 130], and q (B, *tail)
+    reaching 10% of the widest span beyond both ends, with the domain's end
+    points of each series, NaN, +inf, -inf and queries far out on both
+    sides planted in every row."""
+    series = []
+    for _ in range(S):
+        a = rng.uniform(0.01, 5.0, B)
+        series.append((rng.standard_normal((B, K)) / (1.0 + np.arange(K)),
+                       a, a + rng.uniform(60.0, 125.0, B)))
+    lo = min(s[1].min() for s in series)
+    hi = max(s[2].max() for s in series)
+    q = rng.uniform(lo - 0.1 * (hi - lo), hi + 0.1 * (hi - lo),
+                    (B,) + tuple(tail))
+    flat = q.reshape(B, -1)
+    planted = np.column_stack([s[i] for s in series for i in (1, 2)]
+                              + [np.tile([np.nan, np.inf, -np.inf, -1e6, 1e6],
+                                         (B, 1))])
+    n = min(planted.shape[1], flat.shape[1])
+    flat[:, :n] = planted[:, :n]
+    return series, q
+
+
+def _torch_series(series, **kw):
+    return [tuple(torch.as_tensor(v, **kw) if kw else _t(v) for v in s)
+            for s in series]
+
+
+@pytest.mark.parametrize('case,error,match', [
+    ('cpu', ValueError, 'CUDA'),
+    ('grad', RuntimeError, 'records no gradient'),
+    ('int', TypeError, 'float32 or float64'),
+    ('mixed_dtypes', TypeError, 'one dtype'),
+    ('not_contiguous', ValueError, 'contiguous'),
+    ('too_many_terms', ValueError, 'terms'),
+    ('no_terms', ValueError, 'terms'),
+    ('no_series', ValueError, 'series'),
+    ('three_series', ValueError, 'series'),
+    ('two_term_counts', ValueError, 'one K'),
+    ('domain_rows', ValueError, 'a and b must be'),
+    ('query_rows', ValueError, r'coef must be \(2, K\)'),
+    ('q_3d', ValueError, 'q must be'),
+    ('transpose_cpu', ValueError, 'CUDA'),
+    ('transpose_g_shape', ValueError, 'g must be'),
+    ('transpose_terms', ValueError, 'terms'),
+    ('transpose_dtypes', TypeError, 'one dtype'),
+])
+def test_chebyshev_wrapper_refuses_before_any_launch(case, error, match):
+    """What the Clenshaw kernels' wrappers (the evaluation and the
+    transpose) refuse, checked before any launch: their checks run on CPU
+    tensors too, and a CPU tensor that passes them is refused for its
+    device."""
+    f64 = torch.float64
+    coef = torch.zeros(3, 49, dtype=f64)
+    a, b = torch.zeros(3, dtype=f64), torch.ones(3, dtype=f64)
+    q = torch.zeros(3, 10, dtype=f64)
+    one = (coef, a, b)
+    n = chebyshev.MAX_TERMS + 1
+    if case.startswith('transpose'):
+        fn = chebyshev.chebyshev_transpose_cuda
+        args = {'transpose_cpu': (q, a, b, q, 49),
+                'transpose_g_shape': (torch.zeros(3, 5, dtype=f64), a, b, q, 49),
+                'transpose_terms': (q, a, b, q, n),
+                'transpose_dtypes': (q.float(), a, b, q, 49)}[case]
+    else:
+        fn = chebyshev.chebyshev_eval_cuda
+        args = {
+            'cpu': ([one, one], q),
+            'grad': ([(coef.clone().requires_grad_(), a, b)], q),
+            'int': ([(coef.long(), a.long(), b.long())], q.long()),
+            'mixed_dtypes': ([one], q.float()),
+            'not_contiguous': ([one], torch.zeros(10, 3, dtype=f64).t()),
+            'too_many_terms': ([(torch.zeros(3, n, dtype=f64), a, b)], q),
+            'no_terms': ([(torch.zeros(3, 0, dtype=f64), a, b)], q),
+            'no_series': ([], q),
+            'three_series': ([one] * 3, q),
+            'two_term_counts': ([one, (coef[:, :25].contiguous(), a, b)], q),
+            'domain_rows': ([(coef, a[:2], b)], q),
+            'query_rows': ([one], q[:2]),
+            'q_3d': ([one], q.reshape(3, 2, 5)),
+        }[case]
+    names = ('chebyshev.launches', 'chebyshev.transpose_launches')
+    before = [total(name) for name in names]
+    with pytest.raises(error, match=match):
+        fn(*args)
+    assert [total(name) for name in names] == before
+
+
+@pytest.mark.parametrize('S', [1, 2])
+@pytest.mark.parametrize('grad', [False, True])
+def test_chebyshev_router_takes_the_plain_recurrence(monkeypatch, S, grad):
+    """ops.splines.chebyshev_eval_multi sends CPU tensors, with or without a
+    recorded gradient, to the plain recurrence: no kernel wrapper, no
+    ChebyshevEval, no `chebyshev.plain_cuda` count (that counts CUDA calls
+    only), the plain version's bits, and a gradient that reaches every
+    input."""
+    def refuse(*args):
+        raise AssertionError('the CUDA route was taken')
+    monkeypatch.setattr(chebyshev, 'chebyshev_eval_cuda', refuse)
+    monkeypatch.setattr(chebyshev.ChebyshevEval, 'apply', refuse)
+    rng = np.random.default_rng(40 + S)
+    series, q = _chebyshev_inputs(rng, 3, S, 25, (4, 30))
+    series, q = _torch_series(series), _t(q)
+    flat = [t for s in series for t in s] + [q]
+    if grad:
+        for t in flat:
+            t.requires_grad_()
+    names = ('chebyshev.launches', 'chebyshev.plain_cuda')
+    before = [total(n) for n in names]
+    got = tsp.chebyshev_eval_multi(series, q)
+    assert [total(n) for n in names] == before
+    assert len(got) == S and all(g.shape == (3, 4, 30) for g in got)
+    with torch.no_grad():
+        want = [chebyshev.chebyshev_eval_plain(*s, q) for s in series]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.detach().numpy(), w.numpy())
+        assert g.requires_grad == grad
+    if grad:
+        sum(g[torch.isfinite(g)].sum() for g in got).backward()
+        assert all(t.grad is not None for t in flat)
+
+
+@pytest.mark.parametrize('B,M,want', [
+    (64, 150_000, 147),        # 75,000 pairs over 512 per block
+    (64, 3_000, 3),
+    (8, 49, 1),
+    (1, 1, 1),
+    (2 ** 29, 150_000, 3),     # the grid's limit of 2**31 - 1 blocks
+])
+def test_chebyshev_blocks_per_row(B, M, want):
+    """The evaluation's blocks per row: PAIRS_PER_THREAD pairs of queries
+    per thread, at least one block, and B times it within the grid's
+    limit."""
+    got = chebyshev.blocks_per_row(B, M)
+    assert got == want
+    assert B * got <= 2 ** 31 - 1
+
+
+@pytest.mark.parametrize('B,M,want', [
+    (64, 150_000, 37),         # 4 passes of 4 queries per thread
+    (64, 3_000, 1),
+    (2 ** 29, 150_000, 3),
+])
+def test_chebyshev_transpose_blocks_per_row(B, M, want):
+    """The transpose's blocks per row: PASSES passes of POINTS queries per
+    thread, at least one block, and B times it within the grid's limit."""
+    got = chebyshev.transpose_blocks_per_row(B, M)
+    assert got == want
+    assert B * got <= 2 ** 31 - 1
+
+
+def _chebyshev_grads(fn, series, q, weights, probe):
+    """The gradient of sum_s <out_s, weights_s> to q and every series'
+    coef, a and b through `fn`, and the derivative of that gradient along
+    `probe` (a Hessian-vector product), each input as a fresh leaf."""
+    leaves = [q.clone().requires_grad_()] + [
+        t.clone().requires_grad_() for s in series for t in s]
+    qq, flat = leaves[0], leaves[1:]
+    outs = fn([flat[i:i + 3] for i in range(0, len(flat), 3)], qq)
+    loss = sum((o * w).nansum() for o, w in zip(outs, weights))
+    grads = torch.autograd.grad(loss, leaves, create_graph=True)
+    hvp = torch.autograd.grad(
+        sum((g * p).nansum() for g, p in zip(grads, probe)), leaves,
+        allow_unused=True)
+    return ([o.detach() for o in outs], [g.detach() for g in grads],
+            [torch.zeros_like(t) if h is None else h
+             for h, t in zip(hvp, leaves)])
+
+
+def _via_function(series, q):
+    return chebyshev.ChebyshevEval.apply(q, *[t for s in series for t in s])
+
+
+def _via_plain(series, q):
+    return [chebyshev.chebyshev_eval_plain(*s, q) for s in series]
+
+
+@pytest.mark.parametrize('S', [1, 2])
+@pytest.mark.parametrize('K', [2, 3, 25, 49])
+def test_chebyshev_gradient_equals_plain_autograd(S, K):
+    """ChebyshevEval's composed gradient (its CPU pieces: the plain
+    recurrence for the derivative's series and the plain transpose) against
+    the plain recurrence's own autograd, to q, coef, a and b, first order
+    and Hessian-vector products: within 1e-12 of each gradient's largest
+    entry, the same values bit for bit, and NaN in the same places. The
+    queries hold the domain's end points (JAX's tie rule of the clip),
+    queries far outside, NaN and infinities. (A constant series, K = 1,
+    has no slope in u; there the two differ in where NaN appears.)"""
+    rng = np.random.default_rng(80 + 3 * S + K)
+    series, q = _chebyshev_inputs(rng, 3, S, K, (40,))
+    series, q = _torch_series(series), _t(q)
+    weights = [_t(rng.standard_normal(q.shape)) for _ in range(S)]
+    probe = [_t(rng.standard_normal(t.shape))
+             for t in [q] + [t for s in series for t in s]]
+    got = _chebyshev_grads(_via_function, series, q, weights, probe)
+    want = _chebyshev_grads(_via_plain, series, q, weights, probe)
+    for o, w in zip(got[0], want[0]):
+        assert torch.equal(o.nan_to_num(7.0), w.nan_to_num(7.0))
+    for kind in (1, 2):
+        for g, w in zip(got[kind], want[kind]):
+            assert torch.equal(torch.isnan(g), torch.isnan(w))
+            scale = float(w.nan_to_num(0.0).abs().max())
+            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                       atol=1e-12 * max(scale, 1e-300))
+
+
+@pytest.mark.parametrize('S', [1, 2])
+def test_chebyshev_function_passes_gradcheck(S):
+    """ChebyshevEval on the CPU against finite differences, first and
+    second order (torch.autograd.gradcheck and gradgradcheck), to q and to
+    every series' coef, a and b, with the queries inside the domain (the
+    clip's kink is not differentiable)."""
+    rng = np.random.default_rng(90 + S)
+    series, _ = _chebyshev_inputs(rng, 2, S, 7, (1,))
+    q = _t(rng.uniform(6.0, 60.0, (2, 5))).requires_grad_()
+    flat = [t.requires_grad_() for s in _torch_series(series) for t in s]
+    assert torch.autograd.gradcheck(_via_function_flat, (q, *flat))
+    assert torch.autograd.gradgradcheck(_via_function_flat, (q, *flat))
+
+
+def _via_function_flat(q, *flat):
+    return chebyshev.ChebyshevEval.apply(q, *flat)
+
+
+@pytest.mark.parametrize('K', [1, 2, 9, 49])
+def test_chebyshev_transpose_plain_sums_g_times_t_k(K):
+    """chebyshev_transpose_plain's entry k is sum_m g T_k(u) with u the
+    evaluation's clipped query, T_k from numpy's chebvander;
+    derivative_coefficients equals numpy's chebder (with a zero last
+    term)."""
+    rng = np.random.default_rng(100 + K)
+    (coef, a, b), = _chebyshev_inputs(rng, 3, 1, K, (40,))[0]
+    q = rng.uniform(-10.0, 140.0, (3, 40))
+    g = rng.standard_normal((3, 40))
+    u = np.clip((2.0 * q - (a + b)[:, None]) / (b - a)[:, None], -1.0, 1.0)
+    want = np.einsum('bm,bmk->bk', g, np.polynomial.chebyshev.chebvander(
+        u, K - 1))
+    got = chebyshev.chebyshev_transpose_plain(_t(g), _t(a), _t(b), _t(q), K)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
+                               atol=1e-12 * np.abs(want).max())
+    der = chebyshev.derivative_coefficients(_t(coef)).numpy()
+    want_der = np.stack([np.append(np.polynomial.chebyshev.chebder(c),
+                                   np.zeros(1 if K > 1 else 0))[:K]
+                         for c in coef])
+    np.testing.assert_allclose(der, want_der, rtol=1e-14, atol=1e-14)
 
 
 @pytest.fixture
@@ -1284,3 +1535,252 @@ def test_sharded_joint_likelihood_across_cards(cuda_device, tmp_path):
         jb, names, gradient_free=False)(t)[0].sum(), t)
     np.testing.assert_allclose(g_sh.cpu().numpy(), g_b.cpu().numpy(),
                                rtol=1e-10)
+
+
+def _bits(t):
+    """The bit patterns of a float tensor, NaN entries zeroed (their
+    payloads are not compared), and the NaN mask."""
+    nan = torch.isnan(t)
+    ints = t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+    return torch.where(nan, torch.zeros_like(ints), ints), nan
+
+
+def _plain_series(series, q):
+    """`chebyshev_eval_cuda`'s signature on the plain recurrence."""
+    return tuple(chebyshev.chebyshev_eval_plain(*s, q) for s in series)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('S', [1, 2])
+@pytest.mark.parametrize('K', [17, 25, 49])
+@pytest.mark.parametrize('tail,offset', [((3000,), 0), ((50, 3000), 0),
+                                         ((7, 41), 0), ((3000,), 1)])
+def test_chebyshev_kernel_equals_plain_on_card(cuda_device, dtype, S, K, tail,
+                                               offset):
+    """The Clenshaw kernel against the plain recurrence on the card, bit
+    for bit (equal NaN masks, every other entry's bits equal, the sign of
+    a zero included): (B, q) and (B, 50, 3000) queries, an odd row length
+    (7 x 41, the scalar path) and q at a storage offset of one element (not
+    aligned to a pair), with queries beyond both ends of the domain, at its
+    end points, NaN and infinite. Through ops.splines it is one launch."""
+    rng = np.random.default_rng(60 + S + K)
+    B = 16
+    series, q = _chebyshev_inputs(rng, B, S, K, tail)
+    series = _torch_series(series, dtype=dtype, device=cuda_device)
+    q = torch.as_tensor(q, dtype=dtype, device=cuda_device)
+    q2 = q.reshape(B, -1)
+    if offset:
+        q2 = torch.cat([q2.new_zeros(1), q2.reshape(-1)])[1:].view(q2.shape)
+        assert q2.data_ptr() % (2 * q2.element_size()) != 0
+    got = chebyshev.chebyshev_eval_cuda(series, q2)
+    want = _plain_series(series, q2)
+    torch.cuda.synchronize()
+    assert len(got) == len(want) == S
+    for g, w in zip(got, want):
+        assert g.shape == w.shape == (B, q2.shape[1])
+        (gb, gn), (wb, wn) = _bits(g), _bits(w)
+        assert torch.equal(gn, wn) and int(gn.sum()) == B
+        assert torch.equal(gb, wb)
+    before = total('chebyshev.launches')
+    via_ops = tsp.chebyshev_eval_multi(series, q)
+    assert total('chebyshev.launches') == before + 1
+    for v, w in zip(via_ops, want):
+        assert v.shape == (B,) + tail
+        assert torch.equal(_bits(v.reshape(B, -1))[0], _bits(w)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float64, torch.float32])
+@pytest.mark.parametrize('K', [17, 25, 49])
+@pytest.mark.parametrize('tail', [(3000,), (50, 3000), (7, 41)])
+def test_chebyshev_transpose_kernel_matches_plain_on_card(cuda_device, dtype,
+                                                          K, tail):
+    """The transpose kernel (sum_m g T_k(u) per row) against the plain
+    version on the card: within 1e-12 (f64) or 1e-5 (f32) of each row's
+    sum |g| (|T_k| <= 1), NaN where the plain version has it (every term
+    but T_0 = 1 of the odd rows, which hold a NaN query; the even ones have
+    it replaced by a finite query), and the same bits on a second launch
+    (no atomics)."""
+    rng = np.random.default_rng(75 + K + len(tail))
+    B = 16
+    series, q = _chebyshev_inputs(rng, B, 1, K, tail)
+    q = q.reshape(B, -1)
+    q[0::2] = np.nan_to_num(q[0::2], nan=50.0, posinf=np.inf,
+                            neginf=-np.inf)
+    _, a, b = _torch_series(series, dtype=dtype, device=cuda_device)[0]
+    q = torch.as_tensor(q, dtype=dtype, device=cuda_device)
+    g = torch.as_tensor(rng.standard_normal(q.shape), dtype=dtype,
+                        device=cuda_device)
+    before = total('chebyshev.transpose_launches')
+    got = chebyshev.chebyshev_transpose_cuda(g, a, b, q, K)
+    again = chebyshev.chebyshev_transpose_cuda(g, a, b, q, K)
+    assert total('chebyshev.transpose_launches') == before + 2
+    want = chebyshev.chebyshev_transpose_plain(g, a, b, q, K)
+    assert got.shape == (B, K)
+    assert torch.equal(_bits(got)[0], _bits(again)[0])
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert bool(torch.isnan(got[1::2, 1:]).all())
+    tol = (1e-12 if dtype == torch.float64 else 1e-5) * g.abs().sum(1)
+    err = (got - want).nan_to_num(0.0).abs().max(1).values
+    assert bool((err <= tol).all()), (err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('S', [1, 2])
+def test_chebyshev_gradient_on_card_runs_the_kernels(cuda_device, S):
+    """Under a recorded gradient a CUDA call goes through ChebyshevEval:
+    the forward and the derivative's series on the evaluation kernel, the
+    coefficients' gradient on the transpose kernel, and no plain CUDA
+    call. Its gradient and a Hessian-vector product equal the CPU's
+    (ChebyshevEval on the plain pieces, itself held to the plain autograd
+    by test_chebyshev_gradient_equals_plain_autograd) within 1e-12 of each
+    one's largest entry, NaN in the same places."""
+    rng = np.random.default_rng(70 + S)
+    series, q = _chebyshev_inputs(rng, 4, S, 49, (2, 300))
+    weights = [rng.standard_normal(q.shape) for _ in range(S)]
+    shapes = [q.shape] + [t.shape for s in series for t in s]
+    probe = [rng.standard_normal(sh) for sh in shapes]
+
+    def run(device):
+        ser = _torch_series(series, dtype=torch.float64, device=device)
+        leaves = [torch.as_tensor(q, device=device).requires_grad_()] + [
+            t.requires_grad_() for s in ser for t in s]
+        outs = tsp.chebyshev_eval_multi(
+            [leaves[i:i + 3] for i in range(1, len(leaves), 3)], leaves[0])
+        loss = sum((o * torch.as_tensor(w, device=device)).nansum()
+                   for o, w in zip(outs, weights))
+        grads = torch.autograd.grad(loss, leaves, create_graph=True)
+        hvp = torch.autograd.grad(
+            sum((gr * torch.as_tensor(p, device=device)).nansum()
+                for gr, p in zip(grads, probe)), leaves, allow_unused=True)
+        return [t.detach().cpu() for t in grads] + [
+            torch.zeros(sh, dtype=torch.float64) if h is None else h.cpu()
+            for h, sh in zip(hvp, shapes)]
+
+    names = ('chebyshev.launches', 'chebyshev.transpose_launches',
+             'chebyshev.plain_cuda')
+    before = [total(n, cuda_device) for n in names]
+    got = run(cuda_device)
+    grew = [total(n, cuda_device) - c for n, c in zip(names, before)]
+    assert grew[0] >= 2 and grew[1] >= S and grew[2] == 0, grew
+    want = chebyshev_function_on_cpu(run)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+        scale = float(w.nan_to_num(0.0).abs().max())
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-12 * max(scale, 1e-300))
+
+
+def chebyshev_function_on_cpu(run):
+    """`run('cpu')` with the CPU tensors routed through ChebyshevEval (the
+    router sends them to the plain recurrence)."""
+    real = tsp.chebyshev_eval_multi
+
+    def through_function(series, q):
+        flat = [t for s in series for t in s]
+        q2 = q.reshape(q.shape[0], -1)
+        outs = chebyshev.ChebyshevEval.apply(q2, *flat)
+        return tuple(o.view(q.shape) for o in outs)
+    tsp.chebyshev_eval_multi = through_function
+    try:
+        return run('cpu')
+    finally:
+        tsp.chebyshev_eval_multi = real
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('order', [1, 2])
+def test_dispersion_derivatives_run_the_kernels_on_card(cuda_device, order):
+    """d lnL / d theta (order 1) and the Hessian by replicated rows (order
+    2) of the dispersion model in its default modes (Chebyshev interior,
+    'fast' final stage): the Clenshaw kernel and its transpose launch, and
+    no CUDA tensor reaches the plain recurrence."""
+    from victor_tpu_torch.io.tables import build_tables
+    from victor_tpu_torch.sampling.optimize import value_grad_hessian
+    from victor_tpu_torch.sampling.targets import resolve_target
+    cfg = _boss_config_npz()
+    bundle = build_tables(cfg['model'], cfg['data'], device=cuda_device)
+    tables, loglike = resolve_target(bundle, {'rsd_model': 'dispersion'},
+                                     None, gradient_free=False)
+    names = ('fsigma8', 'beta', 'sigma_v', 'epsilon')
+    th = torch.tensor([[0.47, 0.40, 380.0, 1.0], [0.40, 0.45, 330.0, 1.02]],
+                      dtype=torch.float64, device=cuda_device)
+
+    def neg(t):
+        return -loglike(tables, {k: t[:, i] for i, k in enumerate(names)})[0]
+    counters = ('chebyshev.launches', 'chebyshev.transpose_launches',
+                'chebyshev.plain_cuda')
+    before = [total(n) for n in counters]
+    if order == 1:
+        t = th.clone().requires_grad_()
+        (out,) = torch.autograd.grad(neg(t).sum(), t)
+    else:
+        out = value_grad_hessian(neg, th)[2]
+    torch.cuda.synchronize()
+    grew = [total(n) - c for n, c in zip(counters, before)]
+    assert bool(torch.isfinite(out).all())
+    assert grew[0] > 0 and grew[1] > 0 and grew[2] == 0, grew
+
+
+def _boss_fast_bundle(device):
+    """The BOSS bundle (configs/boss_config.yaml, full width, f64) on
+    `device`, and the gradient-free fast modes of the SMC path."""
+    from victor_tpu_torch.io.tables import build_tables
+    cfg = _boss_config_npz()
+    return build_tables(cfg['model'], cfg['data'], device=device), {
+        'streaming_eval': 'fast', 'beta_covariance': 'factored',
+        'dispersion_final': 'fast'}
+
+
+@pytest.mark.cuda
+def test_boss_fast_chunk_equals_plain_recurrence_on_card(cuda_device,
+                                                         monkeypatch):
+    """One chunk of 64 BOSS parameter points in the fast streaming mode: the
+    log-likelihoods with the Clenshaw kernel equal those with the plain
+    recurrence on the card bit for bit, and the chunk launches the kernel
+    once."""
+    from victor_tpu_torch.likelihood.batched import make_batched_loglike
+    bundle, fast = _boss_fast_bundle(cuda_device)
+    rng = np.random.default_rng(71)
+    theta = torch.as_tensor(np.column_stack([
+        rng.uniform(0.3, 0.6, 64), rng.uniform(0.25, 0.55, 64),
+        rng.uniform(250.0, 450.0, 64), rng.uniform(0.9, 1.1, 64)]),
+        device=cuda_device)
+    loglike = make_batched_loglike(bundle, ['fsigma8', 'beta', 'sigma_v',
+                                            'epsilon'], opts_kw=fast, chunk=64)
+    before = total('chebyshev.launches')
+    lnl, chi2 = loglike(theta)
+    torch.cuda.synchronize()
+    assert total('chebyshev.launches') == before + 1
+    monkeypatch.setattr(chebyshev, 'chebyshev_eval_cuda', _plain_series)
+    lnl_p, chi2_p = loglike(theta)
+    assert total('chebyshev.launches') == before + 1
+    assert bool(torch.isfinite(lnl).all())
+    for got, want in ((lnl, lnl_p), (chi2, chi2_p)):
+        assert torch.equal(_bits(got)[0], _bits(want)[0])
+
+
+@pytest.mark.cuda
+def test_smc_stage_launches_the_kernel_once_per_chunk(cuda_device, tmp_path):
+    """A fresh SMC stage in the fast modes (the initial evaluation and the
+    moves, 256 particles in chunks of 64) counts exactly one
+    `chebyshev.launches` per streaming chunk and no `chebyshev.plain_cuda`."""
+    from victor_tpu_torch.sampling.smc import run_smc
+    bundle, fast = _boss_fast_bundle(cuda_device)
+    params = {name: {'prior': {'dist': 'uniform', 'min': lo, 'max': hi}}
+              for name, lo, hi in (('fsigma8', 0.05, 1.5), ('beta', 0.2, 0.6),
+                                   ('sigma_v', 100.0, 500.0),
+                                   ('epsilon', 0.8, 1.2))}
+    n, moves, chunk = 256, 2, 64
+    names = ('chebyshev.launches', 'chebyshev.plain_cuda')
+    before = [total(name) for name in names]
+    try:
+        run_smc(bundle, params, n_particles=n, n_moves=moves, seed=3,
+                opts_kw=fast, chunk=chunk, max_stages=1,
+                checkpoint=str(tmp_path / 'smc.npz'), device=cuda_device)
+    except RuntimeError as e:
+        assert 'did not reach beta=1' in str(e)
+    torch.cuda.synchronize()
+    grew = [total(name) - b for name, b in zip(names, before)]
+    assert grew == [(1 + moves) * (n // chunk), 0]

@@ -17,7 +17,8 @@ import jax.numpy as jnp
 from victor_tpu.ops import splines as jsp
 from victor_tpu_torch.ops import splines as tsp
 
-from test_torch_kernels import _coeffs, _knots, _queries, _t
+from test_torch_kernels import (_chebyshev_inputs, _coeffs, _knots, _queries,
+                                _t)
 
 torch.set_num_threads(1)
 
@@ -223,6 +224,25 @@ def test_chebyshev_interpolates_at_its_nodes():
     rn = 0.5 * (a + b)[:, None] + 0.5 * (b - a)[:, None] * _t(nodes)
     np.testing.assert_allclose(tsp.chebyshev_eval(coef, a, b, rn).numpy(),
                                fn(rn).numpy(), rtol=0, atol=1e-13)
+
+
+@pytest.mark.parametrize('S', [1, 2])
+@pytest.mark.parametrize('tail', [(40,), (5, 40)])
+def test_chebyshev_eval_multi_equals_single_calls(S, tail):
+    """On the CPU, series s of chebyshev_eval_multi equals chebyshev_eval on
+    that series' coefficients and domain bit for bit, over (B, q) and
+    (B, n_v, q) queries with out-of-range, end-point and NaN entries."""
+    rng = np.random.default_rng(50 + S + len(tail))
+    series, q = _chebyshev_inputs(rng, 3, S, 49, tail)
+    series = [tuple(_t(v) for v in s) for s in series]
+    got = tsp.chebyshev_eval_multi(series, _t(q))
+    assert len(got) == S
+    for s, (coef, a, b) in enumerate(series):
+        assert got[s].shape == (3,) + tail
+        want = tsp.chebyshev_eval(coef, a, b, _t(q)).numpy()
+        np.testing.assert_array_equal(got[s].numpy().view(np.int64),
+                                      want.view(np.int64))
+        assert np.isnan(got[s].numpy()).sum() == 3
 
 
 @pytest.mark.parametrize('kind', ['Spline1D', 'PchipTable', 'Bicubic2D'])

@@ -30,8 +30,8 @@ import torch
 from ..config import RSD_MODELS, TableSpec, TheoryOptions
 from ..errors import InputError
 from ..ops.legendre import legendre_p
-from ..ops.splines import (chebyshev_eval, chebyshev_fit, dispersion_final,
-                           pchip_eval)
+from ..ops.splines import (chebyshev_eval, chebyshev_eval_multi, chebyshev_fit,
+                           dispersion_final, pchip_eval)
 
 SQRT2PI = 2.5066282746310002
 
@@ -276,8 +276,11 @@ def theory_xi_points(tables, spec: TableSpec, opts: TheoryOptions, params,
                 return tables.sv_surf.ev(q / resc[:, None], torch.zeros_like(q))
 
             coef_s = chebyshev_fit(sv_1d, slo, shi, degree=48)
-            mean = chebyshev_eval(coef_v, lo, hi, rr) * mu_r
-            sv = b3(sigma_v) * chebyshev_eval(coef_s, slo, shi, rr)
+            # both series over rr in one pass (one kernel launch on the card)
+            vr_rr, sv_rr = chebyshev_eval_multi(((coef_v, lo, hi),
+                                                 (coef_s, slo, shi)), rr)
+            mean = vr_rr * mu_r
+            sv = b3(sigma_v) * sv_rr
         else:
             if opts.streaming_eval == 'fast':
                 # only the 1D factor compresses well enough: say so rather

@@ -11,11 +11,20 @@ Piecewise-cubic evaluation (`ppoly_eval`, and `ppoly_eval_multi` for up to
 four tables over one query set) and the dispersion model's final stage
 (`dispersion_final`) run their hand-written CUDA kernels for CUDA tensors
 and their plain PyTorch versions for CPU tensors (`kernels/ppoly.py`,
-`kernels/dispersion.py`). Nothing moves a CUDA tensor to the CPU. The
-Chebyshev compressions (`chebyshev_fit`, `chebyshev_eval`) behind the
-gradient-free perf modes and the dynamic-knot splines of the excursion-set
-model (`cubic_coeffs_dynamic`, `ppoly_eval_dynamic`) are plain PyTorch, as
-XLA fused them in the JAX package.
+`kernels/dispersion.py`). Nothing moves a CUDA tensor to the CPU.
+
+The Chebyshev evaluation of the fast streaming mode and of the dispersion
+solve (`chebyshev_eval`, and `chebyshev_eval_multi` for two series over one
+query set) runs a hand-written CUDA kernel for CUDA tensors
+(`kernels/chebyshev.py`), with its gradient composed of the same kernel and
+a reduction kernel of the same source: XLA fused the JAX package's
+recurrence (`victor_tpu/ops/splines.py:494-502`; there is no Pallas
+kernel), which PyTorch would run as ~159 launches per series. The kernel is
+bound by f64 operations at the fast streaming mode's (64, 50 x 3000), and
+rounds each of them on its own, so it equals the plain recurrence bit for
+bit. The fit (`chebyshev_fit`) and the dynamic-knot splines of the
+excursion-set model (`cubic_coeffs_dynamic`, `ppoly_eval_dynamic`) are
+plain PyTorch, as XLA fused them in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels import chebyshev as _chebyshev
 from ..kernels import dispersion as _dispersion
 from ..kernels.ppoly import PpolyEval, ppoly_eval_cuda, ppoly_eval_plain
 from .special import clip, ipow
@@ -241,20 +251,39 @@ def chebyshev_fit(fn, a, b, degree: int = 32):
     return torch.einsum('ij,bj->bi', _tensor(inv, a.device, a.dtype), f)
 
 
+def chebyshev_eval_multi(series, q):
+    """Clenshaw evaluation of up to two per-row Chebyshev series over one
+    query set: series ((coef (B, K), a (B,), b (B,)), ...), one K, and q
+    (B, ...) -> a tuple of q-shaped tensors, one per series. Series s
+    equals `chebyshev_eval(*series[s], q)` bit for bit.
+
+    CUDA tensors go to the CUDA kernel, one launch for all the series (S <=
+    2, K <= 128; it raises on what it cannot take): directly where no
+    gradient is recorded, through `kernels.chebyshev.ChebyshevEval` (its
+    gradient on the card's kernels) where one is. CPU tensors go to the
+    plain recurrence, whose autograd is its operations' own (`clip`'s JAX
+    derivative)."""
+    if not q.is_cuda:
+        return tuple(_chebyshev.chebyshev_eval_plain(c, a, b, q)
+                     for c, a, b in series)
+    flat = [t for s in series for t in s]
+    q2 = q.reshape(q.shape[0], -1)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in flat + [q]):
+        outs = _chebyshev.ChebyshevEval.apply(q2, *flat)
+    else:
+        outs = _chebyshev.chebyshev_eval_cuda(
+            [tuple(t.contiguous() for t in s) for s in series],
+            q2.contiguous())
+    return tuple(o.view(q.shape) for o in outs)
+
+
 def chebyshev_eval(coef, a, b, q):
     """Clenshaw evaluation of per-row Chebyshev series on [a, b]: coef
     (B, K), a and b (B,), q (B, ...) -> q's shape. q is clamped into the
     domain by `clip` (NaN stays NaN; JAX's derivative). The recurrence is
-    the JAX package's, step for step."""
-    shape = (-1,) + (1,) * (q.ndim - 1)
-    a, b = a.reshape(shape), b.reshape(shape)
-    u = clip((2.0 * q - (a + b)) / (b - a), -1.0, 1.0)
-    u2 = 2.0 * u          # `2.0 * u * b1` is (2.0 * u) * b1: hoisted, same bits
-    b1 = torch.zeros_like(u)
-    b2 = torch.zeros_like(u)
-    for k in range(coef.shape[1] - 1, 0, -1):
-        b1, b2 = u2 * b1 - b2 + coef[:, k].reshape(shape), b1
-    return u * b1 - b2 + coef[:, 0].reshape(shape)
+    the JAX package's, step for step: `chebyshev_eval_multi`'s one-series
+    case, on the kernel or the plain recurrence by the same rule."""
+    return chebyshev_eval_multi(((coef, a, b),), q)[0]
 
 
 def pchip_eval(x, coeffs, q):

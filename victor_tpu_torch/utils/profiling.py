@@ -74,6 +74,17 @@ Counters (per device index), and what reads them:
                               (the launch counts: chip_smoke.py, the
                               tests, `parallel.probe` and
                               tools/validate_posterior_torch.py)
+    chebyshev.launches        `chebyshev_eval_cuda` launches (the Clenshaw
+                              kernel: one per chunk of the fast streaming
+                              mode, forward and in its gradient)
+    chebyshev.transpose_launches
+                              `chebyshev_transpose_cuda` launches (the
+                              coefficients' gradient)
+    chebyshev.plain_cuda      CUDA calls of the plain recurrence
+                              (`chebyshev_eval_plain`,
+                              `chebyshev_transpose_plain`), which the port
+                              makes on CPU tensors only: 0 on the card's
+                              paths (chip_smoke.py and the tests)
     ppoly.bytes               bytes of every `ppoly_*` launch made while a
                               profiler runs: each input tensor read once,
                               each output written once (the benchmark's
